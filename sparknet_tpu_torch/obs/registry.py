@@ -1,0 +1,252 @@
+"""Process-wide metrics registry: counters / gauges / histograms with labels.
+
+One registry is the single source of truth for everything a process wants
+to report — the train loop's phase timers and throughput meter, the health
+supervisor's anomaly counts, the checkpoint writer's stalls, the serving
+batcher's queue — and one exporter (`render_prometheus`) turns it into the
+Prometheus text exposition format, served by `obs.http.StatusServer` from
+BOTH the training process (`RunConfig.status_port`) and the inference
+server. Before this module each subsystem grew its own reporting path
+(PhaseTimers.summary(), the serve /metrics JSON reading live attributes,
+heartbeat extras); now they all register here and the name schema is one
+compatibility surface (README "Observability", pinned by the golden test).
+
+Thread-safety: ONE lock per registry guards every mutation and every read.
+Writers (inc/set/observe) are hot-path cheap (a dict lookup + float add
+under the lock); readers (`snapshot`, `render_prometheus`) see a CONSISTENT
+point-in-time view — the serve HTTP thread scraping while the worker thread
+mutates was previously reading torn state off FillMeter/LatencyStats
+attributes. Callback gauges (`set_fn`) are evaluated at scrape time and
+must not touch the registry themselves (documented deadlock).
+
+The registry is deliberately instance-scoped, not a module global: a
+process that runs one training loop or one inference server (the real
+deployment) gets exactly one, while tests and multi-tenant processes
+create isolated instances. `default_registry()` exists for ad-hoc code
+that has nothing to thread one through.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+# Prometheus-conventional latency buckets (seconds), wide enough to cover
+# a sub-ms CPU forward and a multi-second bucket checkpoint write.
+DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                   0.5, 1.0, 2.5, 5.0, 10.0)
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace('"', r'\"').replace("\n", r"\n")
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integers render bare (counter hygiene),
+    floats via repr (shortest round-trip)."""
+    f = float(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+class _Hist:
+    """One labeled histogram child: cumulative bucket counts + sum."""
+
+    __slots__ = ("counts", "sum", "n")
+
+    def __init__(self, n_buckets: int):
+        self.counts = [0] * n_buckets  # per-bucket (non-cumulative) counts
+        self.sum = 0.0
+        self.n = 0
+
+
+class Metric:
+    """One metric family: a name, a kind, and children keyed by label
+    values. All mutation goes through the owning registry's lock."""
+
+    def __init__(self, registry: "MetricsRegistry", name: str, kind: str,
+                 help_text: str, label_names: Tuple[str, ...],
+                 buckets: Tuple[float, ...] = DEFAULT_BUCKETS):
+        self.registry = registry
+        self.name = name
+        self.kind = kind
+        self.help = help_text
+        self.label_names = label_names
+        self.buckets = tuple(sorted(buckets)) if kind == "histogram" else ()
+        self._values: Dict[Tuple[str, ...], Any] = {}
+        self._fns: Dict[Tuple[str, ...], Callable[[], float]] = {}
+
+    def _key(self, labels: Dict[str, Any]) -> Tuple[str, ...]:
+        if set(labels) != set(self.label_names):
+            raise ValueError(
+                f"{self.name}: labels {sorted(labels)} != declared "
+                f"{sorted(self.label_names)}")
+        return tuple(str(labels[k]) for k in self.label_names)
+
+    # -- writers (each takes the registry lock once) -------------------------
+
+    def inc(self, amount: float = 1.0, **labels: Any) -> None:
+        assert self.kind in ("counter", "gauge")
+        key = self._key(labels)
+        with self.registry._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def set(self, value: float, **labels: Any) -> None:
+        assert self.kind == "gauge"
+        key = self._key(labels)
+        with self.registry._lock:
+            self._values[key] = float(value)
+
+    def set_fn(self, fn: Callable[[], float], **labels: Any) -> None:
+        """Register a live-read gauge: `fn` is called at scrape time (under
+        the registry lock — it must be cheap and must not re-enter the
+        registry). Exceptions at scrape time drop the sample, never the
+        scrape."""
+        assert self.kind == "gauge"
+        key = self._key(labels)
+        with self.registry._lock:
+            self._fns[key] = fn
+
+    def observe(self, value: float, **labels: Any) -> None:
+        assert self.kind == "histogram"
+        key = self._key(labels)
+        v = float(value)
+        with self.registry._lock:
+            h = self._values.get(key)
+            if h is None:
+                h = self._values[key] = _Hist(len(self.buckets))
+            for i, b in enumerate(self.buckets):
+                if v <= b:
+                    h.counts[i] += 1
+                    break
+            h.sum += v
+            h.n += 1
+
+    # -- readers -------------------------------------------------------------
+
+    def value(self, **labels: Any) -> Optional[float]:
+        """Current scalar value of one child (counters/gauges; tests and
+        status JSON). None when the child has never been touched — or
+        when its scrape callback raises (same drop-the-sample contract
+        as snapshot())."""
+        key = self._key(labels)
+        with self.registry._lock:
+            fn = self._fns.get(key)
+            if fn is not None:
+                try:
+                    return float(fn())
+                except Exception:
+                    return None
+            v = self._values.get(key)
+        return None if v is None or isinstance(v, _Hist) else float(v)
+
+
+class MetricsRegistry:
+    """Get-or-create factory + consistent reader for Metric families."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._metrics: Dict[str, Metric] = {}
+
+    def _get_or_create(self, name: str, kind: str, help_text: str,
+                       labels: Iterable[str],
+                       buckets: Tuple[float, ...]) -> Metric:
+        label_names = tuple(labels)
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if m.kind != kind or m.label_names != label_names:
+                    raise ValueError(
+                        f"metric {name!r} already registered as {m.kind}"
+                        f"{m.label_names}, requested {kind}{label_names}")
+                return m
+            m = Metric(self, name, kind, help_text, label_names, buckets)
+            self._metrics[name] = m
+            return m
+
+    def counter(self, name: str, help_text: str = "",
+                labels: Iterable[str] = ()) -> Metric:
+        return self._get_or_create(name, "counter", help_text, labels, ())
+
+    def gauge(self, name: str, help_text: str = "",
+              labels: Iterable[str] = ()) -> Metric:
+        return self._get_or_create(name, "gauge", help_text, labels, ())
+
+    def histogram(self, name: str, help_text: str = "",
+                  labels: Iterable[str] = (),
+                  buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> Metric:
+        return self._get_or_create(name, "histogram", help_text, labels,
+                                   buckets)
+
+    # -- consistent reads ----------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        """Point-in-time copy of every family under the lock:
+        {name: {kind, help, values: {labels_tuple: float | hist dict}}}.
+        Callback gauges are evaluated here; one that raises is skipped."""
+        out: Dict[str, Dict[str, Any]] = {}
+        with self._lock:
+            for name, m in self._metrics.items():
+                values: Dict[Tuple[str, ...], Any] = {}
+                for key, v in m._values.items():
+                    if isinstance(v, _Hist):
+                        values[key] = {"buckets": list(v.counts),
+                                       "sum": v.sum, "count": v.n}
+                    else:
+                        values[key] = v
+                for key, fn in m._fns.items():
+                    try:
+                        values[key] = float(fn())
+                    except Exception:
+                        pass  # a broken callback must not break the scrape
+                out[name] = {"kind": m.kind, "help": m.help,
+                             "labels": m.label_names,
+                             "le": m.buckets, "values": values}
+        return out
+
+    def render_prometheus(self) -> str:
+        """The Prometheus/OpenMetrics text exposition (version 0.0.4) of a
+        consistent snapshot. Families and children render in sorted order
+        so the output is deterministic (the golden test pins it)."""
+        snap = self.snapshot()
+        lines: List[str] = []
+        for name in sorted(snap):
+            fam = snap[name]
+            if fam["help"]:
+                lines.append(f"# HELP {name} {fam['help']}")
+            lines.append(f"# TYPE {name} {fam['kind']}")
+            for key in sorted(fam["values"]):
+                v = fam["values"][key]
+                pairs = [f'{ln}="{_escape_label(lv)}"'
+                         for ln, lv in zip(fam["labels"], key)]
+                if fam["kind"] == "histogram":
+                    acc = 0
+                    for le, n in zip(fam["le"], v["buckets"]):
+                        acc += n
+                        lb = "{" + ",".join(pairs + [f'le="{_fmt(le)}"']) \
+                             + "}"
+                        lines.append(f"{name}_bucket{lb} {acc}")
+                    lb = "{" + ",".join(pairs + ['le="+Inf"']) + "}"
+                    lines.append(f"{name}_bucket{lb} {v['count']}")
+                    suffix = "{" + ",".join(pairs) + "}" if pairs else ""
+                    lines.append(f"{name}_sum{suffix} {_fmt(v['sum'])}")
+                    lines.append(f"{name}_count{suffix} {v['count']}")
+                else:
+                    suffix = "{" + ",".join(pairs) + "}" if pairs else ""
+                    lines.append(f"{name}{suffix} {_fmt(v)}")
+        return "\n".join(lines) + "\n"
+
+
+_default: Optional[MetricsRegistry] = None
+_default_lock = threading.Lock()
+
+
+def default_registry() -> MetricsRegistry:
+    """The lazily-created process default, for code with nothing better to
+    thread a registry through. The train loop and the inference server
+    each prefer their own instance (isolation under test)."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = MetricsRegistry()
+        return _default
