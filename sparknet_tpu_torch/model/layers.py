@@ -1,4 +1,4 @@
-"""PyTorch implementations of the Caffe layer set (forward, TEST phase).
+"""PyTorch implementations of the Caffe layer set (TEST and TRAIN phases).
 
 The counterpart of `sparknet_tpu/model/layers.py`. Each layer type
 provides:
@@ -19,13 +19,24 @@ from the JAX package's HWIO / (in, out).
 
 Not ported: the space-to-depth stem rewrite of the JAX conv
 (`sparknet_tpu/model/layers.py:203-256`), an exact rewrite for the TPU's
-matrix unit; the parity tests hold conv1's output instead. Dropout is the
-identity in the TEST phase, the only phase this slice runs.
+matrix unit; the parity tests hold conv1's output instead.
+
+Gradients are autograd's, except where the JAX package has a Pallas
+kernel: LRN and MAX pooling are `torch.autograd.Function`s whose
+backwards are the CUDA kernels (`ops/lrn.py`, `ops/pooling.py`).
+
+Dropout is the identity in the TEST phase. In the TRAIN phase it keeps
+each element with probability 1 - ratio and scales it by 1/keep (Caffe's
+train-time scaling). Its masks come from a `torch.Generator` on the
+tensor's device, seeded from the step's generator and the crc32 of the
+layer name (`ApplyCtx.fold`, the counterpart of the JAX package's
+`jax.random.fold_in`); they cannot equal `jax.random`'s bits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import zlib
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +45,7 @@ import torch.nn.functional as F
 from .. import precision
 from ..ops.lrn import IMPLS as LRN_IMPLS
 from ..ops.lrn import lrn as lrn_op
+from ..ops.pooling import IMPLS as POOL_IMPLS
 from ..ops.pooling import caffe_pool_output_size, global_pool2d, pool2d
 from .spec import Filler, LayerSpec
 
@@ -44,24 +56,55 @@ Params = Dict[str, torch.Tensor]
 class OpsImpl:
     """Kernel selection for the ops that have a hand-written kernel.
 
-    lrn: "auto" — the CUDA kernel for CUDA tensors, the plain version for
-         CPU tensors (`ops/cuda_lrn.py:lrn_fwd`); "plain" — the plain
-         PyTorch version everywhere (the reference run on the card).
+    lrn:  "auto" — the CUDA kernels for CUDA tensors, the plain versions
+          for CPU tensors (`ops/cuda_lrn.py`: forward and backward);
+          "plain" — the plain PyTorch versions everywhere (the reference
+          run on the card).
+    pool: the MAX-pool backward, the same two routes
+          (`ops/cuda_pool.py`). Both default to "auto" (see
+          `ops/pooling.py` for why pool differs from the JAX package).
     """
 
     lrn: str = "auto"
+    pool: str = "auto"
 
     def __post_init__(self) -> None:
-        if self.lrn not in LRN_IMPLS:
-            raise ValueError(f"unknown lrn impl {self.lrn!r}: expected one "
-                             f"of {LRN_IMPLS}")
+        for op, impls in (("lrn", LRN_IMPLS), ("pool", POOL_IMPLS)):
+            if getattr(self, op) not in impls:
+                raise ValueError(f"unknown {op} impl "
+                                 f"{getattr(self, op)!r}: expected one of "
+                                 f"{impls}")
 
 
 @dataclasses.dataclass
 class ApplyCtx:
-    """Per-call context threaded through layer application."""
+    """Per-call context threaded through layer application.
+
+    train: the TRAIN phase (dropout active). generator: the step's
+    torch.Generator, from which `fold` derives each dropout layer's own.
+    """
 
     ops: OpsImpl = dataclasses.field(default_factory=OpsImpl)
+    train: bool = False
+    generator: Optional[torch.Generator] = None
+
+    def fold(self, name: str, device: torch.device) -> torch.Generator:
+        """A generator on `device` seeded from (the step generator's seed,
+        crc32(name)) — crc32, not hash(): Python string hashing is
+        randomized per process."""
+        if self.generator is None:
+            raise ValueError(f"dropout layer {name!r} in the TRAIN phase "
+                             f"needs a generator")
+        return seeded_generator((self.generator.initial_seed(),
+                                 zlib.crc32(name.encode())), device)
+
+
+def seeded_generator(keys, device="cpu") -> torch.Generator:
+    """A torch.Generator on `device` seeded from a tuple of non-negative
+    ints through numpy's SeedSequence (the port's `fold_in`)."""
+    seq = np.random.SeedSequence([int(k) for k in keys])
+    return torch.Generator(device=device).manual_seed(
+        int(seq.generate_state(1, np.uint64)[0]))
 
 
 def _cdim(x: torch.Tensor) -> int:
@@ -152,7 +195,8 @@ def apply_pooling(layer: LayerSpec, params, inputs, ctx: ApplyCtx):
     (x,) = inputs
     if p.global_pooling:
         return (global_pool2d(x, p.pool),)
-    return (pool2d(x, p.pool, p.kernel_size, p.stride, p.pad),)
+    return (pool2d(x, p.pool, p.kernel_size, p.stride, p.pad,
+                   impl=ctx.ops.pool),)
 
 
 # ---------------------------------------------------------------------------
@@ -287,9 +331,15 @@ def infer_dropout(layer: LayerSpec, in_shapes):
 
 
 def apply_dropout(layer: LayerSpec, params, inputs, ctx: ApplyCtx):
-    # TEST phase: Caffe scales by 1/keep at train time, so eval is identity
     (x,) = inputs
-    return (x,)
+    ratio = layer.dropout.dropout_ratio if layer.dropout else 0.5
+    if not ctx.train or ratio == 0.0:
+        return (x,)
+    keep = 1.0 - ratio
+    mask = torch.rand(x.shape, generator=ctx.fold(layer.name, x.device),
+                      device=x.device) < keep
+    # Caffe scales at train time by 1/keep so eval needs no rescale
+    return (torch.where(mask, x / keep, 0.0).to(x.dtype),)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 The counterpart of `sparknet_tpu/model/net.py`. A `CompiledNet` holds
   - `init_params(generator, device) -> params`
     ({layer_name: {"w": tensor, "b": tensor}}, PyTorch layouts)
-  - `apply(params, batch) -> {blob_name: tensor}` (TEST phase)
+  - `apply(params, batch, train=..., generator=...) -> {blob_name: tensor}`
+    (TEST or TRAIN phase; differentiable with autograd)
+  - `loss_fn(loss_blob) -> f(params, batch, generator) -> (loss, blobs)`
 and the shape bookkeeping of the JAX package: `input_shapes` (NHWC),
 `blob_shapes` and `output_names`.
 
@@ -106,18 +108,24 @@ class CompiledNet:
     # -- execution ----------------------------------------------------------
 
     def apply(self, params: ParamTree, batch: Mapping[str, torch.Tensor], *,
+              train: bool = False, phase: Optional[str] = None,
+              generator: Optional[torch.Generator] = None,
               ops: Optional[OpsImpl] = None) -> Dict[str, torch.Tensor]:
-        """Run the net in the TEST phase. `batch` maps input blob names to
-        NHWC tensors; returns every blob produced (inputs excluded), 4-D
-        blobs as NHWC views — parity with the JAX package's
-        `CompiledNet.apply`, hidden blobs included."""
+        """Run the net. `batch` maps input blob names to NHWC tensors;
+        returns every blob produced (inputs excluded), 4-D blobs as NHWC
+        views — parity with the JAX package's `CompiledNet.apply`, hidden
+        blobs included. `phase` defaults to TRAIN when `train` else TEST;
+        `generator` seeds the TRAIN phase's dropout masks (ApplyCtx.fold).
+        Gradients flow to `params` through autograd."""
         precision.apply_backend_flags()
-        ctx = ApplyCtx(ops=ops or OpsImpl())
+        phase = phase or ("TRAIN" if train else "TEST")
+        ctx = ApplyCtx(ops=ops or OpsImpl(), train=train,
+                       generator=generator)
         blobs: Dict[str, torch.Tensor] = {
             k: (v.permute(0, 3, 1, 2) if v.ndim == 4 else v)
             for k, v in batch.items()}
         all_tops = set()
-        for layer in self.spec.layers_for_phase("TEST"):
+        for layer in self.spec.layers_for_phase(phase):
             _, apply_fn, _ = LAYER_IMPLS[layer.type]
             inputs = tuple(blobs[b] for b in layer.bottoms)
             outputs = apply_fn(layer, params.get(layer.name), inputs, ctx)
@@ -126,6 +134,18 @@ class CompiledNet:
                 all_tops.add(t)
         return {k: (v.permute(0, 2, 3, 1) if v.ndim == 4 else v)
                 for k, v in blobs.items() if k in all_tops}
+
+    def loss_fn(self, loss_blob: str = "loss",
+                ops: Optional[OpsImpl] = None):
+        """`f(params, batch, generator=None) -> (loss, blobs)`, a TRAIN-phase
+        apply for autograd (the JAX package's `loss_fn` for jax.grad)."""
+
+        def f(params, batch, generator=None):
+            blobs = self.apply(params, batch, train=True,
+                               generator=generator, ops=ops)
+            return blobs[loss_blob], blobs
+
+        return f
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,9 @@
 
 The counterpart of `sparknet_tpu/net_api.py` (`JaxNet`). `TorchNet` owns a
 `CompiledNet` and its params on one device and exposes forward /
-get_weights / set_weights / output_schema, plus `load_jax_params` to carry
-weights over from the JAX package. There is no solver yet: the training
-slice adds forward_backward and step.
+forward_backward / step / get_weights / set_weights / output_schema, plus
+`load_jax_params` to carry weights over from the JAX package. Save and
+load of weight files wait for the model-file port.
 
 Host batches and returned blobs are NHWC numpy arrays, as in the JAX
 package; NCHW batches are recognised and transposed (`_maybe_nhwc`).
@@ -19,17 +19,16 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from . import precision
 from .device import resolve_device
 from .model.caffe_compat import collection_to_params, params_to_collection
 from .model.layers import OpsImpl
 from .model.net import CompiledNet, ParamTree, params_from_jax
 from .model.spec import NetSpec
 from .model.weights import WeightCollection
+from .model.layers import seeded_generator
 from .schema import Field, Schema
-
-_TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32,
-                 "bfloat16": torch.bfloat16}
-
+from .solver import SgdSolver, SolverConfig, SolverState, value_and_grad
 
 def _maybe_nhwc(arr: np.ndarray, want_shape: Tuple[int, ...]) -> np.ndarray:
     """Accept NCHW host batches and transpose to NHWC, recognised by
@@ -56,15 +55,28 @@ class TorchNet:
     device: "cuda" by default; raises without a card unless the caller
     passes device="cpu". seed: the torch.Generator seed for Caffe-filler
     init (drawn on the CPU, so a seed gives the same weights on any
-    device).
+    device) and of the TRAIN-phase dropout generators. solver: makes
+    `step` available. ops: the kernel routes of forward_backward and step.
     """
 
     def __init__(self, spec: NetSpec, *, seed: int = 0,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 solver: Optional[SolverConfig] = None,
+                 loss_blob: str = "loss", ops: Optional[OpsImpl] = None):
         self.device = resolve_device(device)
         self.net = CompiledNet.compile(spec)
         self.params: ParamTree = self.net.init_params(
             torch.Generator().manual_seed(seed), self.device)
+        self.loss_blob = loss_blob
+        self.ops = ops
+        self.solver: Optional[SgdSolver] = None
+        self.solver_state: Optional[SolverState] = None
+        if solver is not None:
+            self.solver = SgdSolver(self.net, solver, loss_blob=loss_blob,
+                                    ops=ops)
+            self.solver_state = self.solver.init_state(self.params)
+        self._seed = seed ^ 0x5EED
+        self._calls = 0  # forward_backward / step calls: the generator key
 
     # -- data plumbing ------------------------------------------------------
 
@@ -79,7 +91,7 @@ class TorchNet:
                 raise ValueError(
                     f"input {name!r}: got {arr.shape}, net expects "
                     f"(N,)+{tuple(want[1:])} (layout NHWC)")
-            dt = _TORCH_DTYPES[self.net.input_dtypes[name]]
+            dt = precision.DTYPES[self.net.input_dtypes[name]]
             out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
                 self.device, dt)
         return out
@@ -96,6 +108,36 @@ class TorchNet:
             blobs = self.net.apply(self.params, self._prep(batch), ops=ops)
             want = set(self.net.output_names) | set(blob_names or [])
             return {k: _to_host(v) for k, v in blobs.items() if k in want}
+
+    def _generator(self) -> torch.Generator:
+        self._calls += 1
+        return seeded_generator((self._seed, self._calls))
+
+    def _trainable(self) -> ParamTree:
+        for lp in self.params.values():
+            for w in lp.values():
+                w.requires_grad_(True)
+        return self.params
+
+    def forward_backward(self, batch: Mapping[str, np.ndarray]
+                         ) -> ParamTree:
+        """TRAIN-phase forward + backward; returns the grads ({layer:
+        {param: tensor}}, PyTorch layouts) and does NOT update the
+        weights (the reference's `forwardBackward`)."""
+        loss_fn = self.net.loss_fn(self.loss_blob, ops=self.ops)
+        _, grads = value_and_grad(loss_fn, self._trainable(),
+                                  self._prep(batch), self._generator())
+        return grads
+
+    def step(self, batch: Mapping[str, np.ndarray]) -> float:
+        """One SGD step (the reference's `CaffeSolver.step`); returns the
+        loss. With iter_size = k the batch holds k x net-batch examples."""
+        if self.solver is None:
+            raise ValueError("construct TorchNet with solver= to train")
+        self.params, self.solver_state, loss = self.solver.step(
+            self._trainable(), self.solver_state, self._prep(batch),
+            self._generator())
+        return float(loss)
 
     def load_jax_params(self, jax_params: Mapping[str, Mapping[str, np.ndarray]]
                         ) -> None:

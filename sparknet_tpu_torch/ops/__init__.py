@@ -1,1 +1,1 @@
-"""Ops behind the layers: LRN (with its CUDA kernel) and Caffe pooling."""
+"""Ops behind the layers: LRN and Caffe pooling, with their CUDA kernels."""

@@ -1,56 +1,64 @@
-"""The LRN-forward CUDA kernel (`csrc/lrn_fwd.cu`): ctypes binding and wrapper.
+"""The LRN CUDA kernels (`csrc/lrn_fwd.cu`, `csrc/lrn_bwd.cu`): ctypes
+bindings and wrappers.
 
-Replaces the two Pallas TPU forward kernels of
+`lrn_fwd` replaces the two Pallas TPU forward kernels of
 `sparknet_tpu/ops/pallas_lrn.py`: `_fwd_kernel` (line 51, the row kernel,
-which the TPU ran for batch sizes N % 128 != 0 and 2-D inputs) and
-`_fwd_kernel3` (line 206, the N-minor kernel for N % 128 == 0). One Hopper
-kernel serves both, on the contiguous (rows, C) view of an NCHW activation
-held in channels_last memory. The scale output of `_fwd_kernel`, which only
-its backward reads, is left to the training slice.
+which the TPU ran for batch sizes N % 128 != 0 and 2-D inputs, and which
+also writes the scale its backward reads) and `_fwd_kernel3` (line 206, the
+N-minor kernel for N % 128 == 0). `lrn_bwd` replaces their backwards,
+`_bwd_kernel` (line 62, from the saved scale) and `_bwd_kernel3` (line 216,
+scale recomputed). Each kernel serves both routes on the contiguous
+(rows, C) view of an NCHW activation held in channels_last memory.
 
-The kernel is bound by HBM bytes (one read of x, one write of y; ~11 f32
-operations per element): one warp stages a row's C channels in shared
-memory and computes every clipped window from there. See the source.
+Both kernels are bound by HBM bytes; one warp stages a row's C channels in
+shared memory and computes every clipped window from there. See the
+sources.
 
-`lrn_fwd` launches the kernel for a CUDA tensor and counts the launch in
-`lrn_fwd.launches`; a CPU tensor takes the plain version
-(`ops/lrn.py:lrn_plain`) and is not counted. Anything the kernel does not
+A wrapper launches its kernel for a CUDA tensor and counts the launch
+(`lrn_fwd.launches`, `lrn_bwd.launches`; `lrn_fwd.scale_launches` counts
+the launches that also wrote the scale); a CPU tensor takes the plain
+version (`ops/lrn.py`) and is not counted. Anything a kernel does not
 take — another dtype or device, a non-contiguous tensor, an even window,
-too many channels — raises. There is no fallback from a CUDA tensor to the
-plain version.
+too many channels, mismatched inputs — raises. There is no fallback from a
+CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple, Union
 
 import torch
 
 from . import _build
-from .lrn import lrn_plain
+from .lrn import lrn_bwd_plain, lrn_plain, lrn_plain_with_scale
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
+_libs = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("lrn_fwd")
-        lib.lrn_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.lrn_fwd.restype = ctypes.c_int
-        lib.lrn_fwd_max_channels.argtypes = []
-        lib.lrn_fwd_max_channels.restype = ctypes.c_int
-        lib.lrn_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.lrn_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _library(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        fn = getattr(lib, name)
+        if name == "lrn_fwd":
+            fn.argtypes = [_P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _I, _P]
+        else:
+            fn.argtypes = [_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _I,
+                           _F, _P]
+        fn.restype = ctypes.c_int
+        getattr(lib, f"{name}_max_channels").argtypes = []
+        getattr(lib, f"{name}_max_channels").restype = ctypes.c_int
+        getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
 
 
 def beta_mode(beta: float) -> int:
-    """The kernel's scale^-beta specialisation: 1 for 0.75, 2 for 0.5,
+    """The kernels' scale^-beta specialisation: 1 for 0.75, 2 for 0.5,
     0 (exp/log) otherwise — the same cases as `ops/lrn.py:pow_neg_beta`."""
     if abs(beta - 0.75) < 1e-12:
         return 1
@@ -59,47 +67,120 @@ def beta_mode(beta: float) -> int:
     return 0
 
 
-def lrn_fwd(x: torch.Tensor, local_size: int = 5, alpha: float = 1e-4,
-            beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
-    """LRN forward over the last axis of a contiguous channels-last tensor."""
+def _check_window(local_size: int) -> None:
     if local_size < 1 or local_size % 2 == 0:
         raise ValueError(f"LRN local_size must be odd and positive "
                          f"(got {local_size})")
+
+
+def _check_cuda(name: str, x: torch.Tensor, lib: ctypes.CDLL) -> int:
+    """The dtype code of x after checking what the kernel takes."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous (..., C) tensor with "
+                         f"C innermost, got strides {x.stride()} for shape "
+                         f"{tuple(x.shape)}")
+    cmax = getattr(lib, f"{name}_max_channels")()
+    if x.shape[-1] > cmax:
+        raise ValueError(f"{name} stages at most {cmax} channels per row, "
+                         f"got {x.shape[-1]}")
+    return code
+
+
+def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
+
+
+def lrn_fwd(x: torch.Tensor, local_size: int = 5, alpha: float = 1e-4,
+            beta: float = 0.75, k: float = 1.0, with_scale: bool = False
+            ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """LRN forward over the last axis of a contiguous channels-last tensor.
+    With `with_scale`, returns (y, scale), the scale in x's dtype."""
+    _check_window(local_size)
     if x.ndim < 1:
         raise ValueError("LRN needs a tensor with a channel axis")
     if x.device.type == "cpu":
+        if with_scale:
+            return lrn_plain_with_scale(x, local_size, alpha, beta, k)
         return lrn_plain(x, local_size, alpha, beta, k)
     if x.device.type != "cuda":
         raise ValueError(f"lrn_fwd runs on CUDA or CPU tensors, got "
                          f"{x.device}")
-    code = _DTYPE_CODES.get(x.dtype)
-    if code is None:
-        raise TypeError(f"lrn_fwd takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"lrn_fwd needs a contiguous (..., C) tensor with "
-                         f"C innermost, got strides {x.stride()} for shape "
-                         f"{tuple(x.shape)}")
-    lib = _library()
-    c = x.shape[-1]
-    if c > lib.lrn_fwd_max_channels():
-        raise ValueError(f"lrn_fwd stages at most "
-                         f"{lib.lrn_fwd_max_channels()} channels per row, "
-                         f"got {c}")
+    lib = _library("lrn_fwd")
+    code = _check_cuda("lrn_fwd", x, lib)
     y = torch.empty_like(x)
+    scale = torch.empty_like(x) if with_scale else None
     if x.numel() == 0:
-        return y
+        return (y, scale) if with_scale else y
+    c = x.shape[-1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lrn_fwd(x.data_ptr(), y.data_ptr(), x.numel() // c, c,
-                          code, (local_size - 1) // 2, alpha / local_size, k,
-                          beta, beta_mode(beta), stream)
-    if err != 0:
-        raise RuntimeError(f"lrn_fwd launch failed: "
-                           f"{lib.lrn_fwd_error_string(err).decode()} "
-                           f"(cudaError {err})")
+        err = lib.lrn_fwd(x.data_ptr(), y.data_ptr(),
+                          scale.data_ptr() if with_scale else None,
+                          x.numel() // c, c, code, (local_size - 1) // 2,
+                          alpha / local_size, k, beta, beta_mode(beta),
+                          stream)
+    _raise_on("lrn_fwd", lib, err)
     lrn_fwd.launches += 1
+    if with_scale:
+        lrn_fwd.scale_launches += 1
+        return y, scale
     return y
 
 
-#: kernel launches since the last reset (CPU calls are not launches)
+#: kernel launches since the last reset (CPU calls are not launches), and
+#: those of them that also wrote the scale (the saved-scale route)
 lrn_fwd.launches = 0
+lrn_fwd.scale_launches = 0
+
+
+def lrn_bwd(x: torch.Tensor, dy: torch.Tensor,
+            scale: Optional[torch.Tensor] = None, local_size: int = 5,
+            alpha: float = 1e-4, beta: float = 0.75, k: float = 1.0
+            ) -> torch.Tensor:
+    """dx of the LRN over the last axis: from the saved `scale` (the
+    forward's, in x's dtype) when given, else with the scale recomputed
+    from x. x, dy and scale are contiguous, of one shape and dtype."""
+    _check_window(local_size)
+    if dy.shape != x.shape or (scale is not None and scale.shape != x.shape):
+        raise ValueError(f"lrn_bwd: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)} and scale must share a shape")
+    if x.ndim < 1:
+        raise ValueError("LRN needs a tensor with a channel axis")
+    tensors = [t for t in (x, dy, scale) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return lrn_bwd_plain(x, dy, scale, local_size, alpha, beta, k)
+    if any(t.device != x.device for t in tensors) or \
+            x.device.type != "cuda":
+        raise ValueError(f"lrn_bwd runs on CUDA or CPU tensors, all on one "
+                         f"device; got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != x.dtype for t in tensors):
+        raise TypeError(f"lrn_bwd: x, dy and scale must share a dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    lib = _library("lrn_bwd")
+    code = 0
+    for t in tensors:
+        code = _check_cuda("lrn_bwd", t, lib)
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    c = x.shape[-1]
+    alpha_n = alpha / local_size
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.lrn_bwd(x.data_ptr(), dy.data_ptr(),
+                          scale.data_ptr() if scale is not None else None,
+                          dx.data_ptr(), x.numel() // c, c, code,
+                          (local_size - 1) // 2, alpha_n, k, beta,
+                          beta_mode(beta), 2.0 * alpha_n * beta, stream)
+    _raise_on("lrn_bwd", lib, err)
+    lrn_bwd.launches += 1
+    return dx
+
+
+#: kernel launches since the last reset (CPU calls are not launches)
+lrn_bwd.launches = 0

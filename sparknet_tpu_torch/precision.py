@@ -21,6 +21,10 @@ import torch
 
 _state = threading.local()
 
+#: torch dtypes by the names specs and configs use
+DTYPES = {"float32": torch.float32, "int32": torch.int32,
+          "bfloat16": torch.bfloat16}
+
 
 def _get() -> str:
     return getattr(_state, "mode", "float32")

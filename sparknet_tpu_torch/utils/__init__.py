@@ -1,1 +1,2 @@
-"""Host-side utilities: the logger and the serving meters."""
+"""Host-side utilities: the logger, the serving meters, the run config
+and the training health monitor."""

@@ -100,7 +100,7 @@ def test_lrn_launch_counter_stays_zero_on_cpu():
     assert cuda_lrn.lrn_fwd.launches == before
     if not torch.cuda.is_available():
         assert cuda_lrn.lrn_fwd.launches == 0
-        assert cuda_lrn._lib is None  # the CPU path never builds or loads
+        assert not cuda_lrn._libs  # the CPU path never builds or loads
 
 
 def test_chip_smoke_refuses_without_the_package(tmp_path):
