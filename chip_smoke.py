@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero before the result line:
    through enough inputs to exceed the 50 MB L2): kernel, plain version,
    `F.local_response_norm` (the library yardstick, which the port never
    calls) and the bound (bytes over 3.35 TB/s vs operations over 67 TFLOP/s
-   f32, whichever is larger).
+   f32, whichever is larger). These times are host-paced, so a call shorter
+   than its wrapper's Python shows the host's launch rate; the kernel is
+   also timed with its calls back to back on the card (`device_ms`: calls
+   queued while a sleep kernel holds the stream).
 2b. The training kernels against their plain versions, same inputs, one
    line per case with the same timings (the library yardstick of a
    backward is a backward-only `torch.autograd.grad` over a graph of
@@ -34,7 +37,8 @@ Phases, in order; any failure exits non-zero before the result line:
    - `maxpool_bwd` at CaffeNet's pool1/pool2/pool5 for batch 256,
      cifar10_quick's ceil-mode pool1 (100, 32, 32, 32) -> 16x16 and one
      pad > 0 shape, float32 and bfloat16, on tie-heavy inputs (a few
-     integer levels, clipped at 0): bit-equal to its plain version, and
+     integer levels, clipped at 0), and pool1/2/5 in bfloat16 also on
+     dense ones (ReLU of a Gaussian): bit-equal to its plain version, and
      the positions that receive gradient equal the plain version's.
    No tolerance is needed: each kernel repeats its plain version's
    operations in the same order, so any difference fails.
@@ -55,16 +59,18 @@ Phases, in order; any failure exits non-zero before the result line:
 4. Train: `apps.train_loop.train` on the card in a world of one, with
    full-width CaffeNet (`zoo.caffenet(batch=256, crop=227,
    n_classes=1000)`) under the ImageNet app's solver and bfloat16, τ = 5,
-   3 rounds, on seeded int8 images (mean-subtracted pixel range), one
+   6 rounds, on seeded int8 images (mean-subtracted pixel range), one
    evaluation at round 0. Launch counters are zeroed before and read
    after. Checks: every round's loss and health finite, nonfinite == 0;
    the params moved; lrn_fwd, lrn_bwd (recompute mode) and maxpool_bwd
    launched exactly 2, 2 and 3 times per step (plus lrn_fwd's 2 for the
    evaluation forward), no scale output written. Then one float32 round
    at local batch 100, where the saved-scale route runs (2 scale-writing
-   lrn_fwd and 2 lrn_bwd per step); then 2 bfloat16 rounds with
-   pool_impl="plain" for the pool route A/B; then, on one fixed float32
-   batch of 256 and the dropout-free net, the gradients of the kernel
+   lrn_fwd and 2 lrn_bwd per step); then the same 6 bfloat16 rounds with
+   pool_impl="plain" for the pool route A/B (each route's first round is
+   its warm-up; the median of the other 5 and their spread); then, on one
+   fixed float32 batch of 256 and the dropout-free net, the gradients of
+   the kernel
    route (OpsImpl()) against the plain route (OpsImpl(lrn="plain",
    pool="plain")), with cuDNN's deterministic algorithms for this
    comparison: per tensor, a relative L2 error within 1e-6 plus twice
@@ -83,6 +89,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -97,12 +104,13 @@ LRN_PARAMS = dict(local_size=5, alpha=1e-4, beta=0.75, k=1.0)  # zoo._lrn
 SERVE_BUCKETS = (1, 8, 64, 128)
 TRAIN_LRN_BATCHES = (100, 256)
 # (name, NHWC x shape, kernel, stride, pad); the first three are one
-# CaffeNet training step's MAX pools at batch 256
+# CaffeNet training step's MAX pools at batch 256 (TRAIN_POOLS)
 POOL_CASES = (("pool1", (256, 55, 55, 96), 3, 2, 0),
               ("pool2", (256, 27, 27, 256), 3, 2, 0),
               ("pool5", (256, 13, 13, 256), 3, 2, 0),
               ("cifar_pool1", (100, 32, 32, 32), 3, 2, 0),
               ("pad1", (64, 13, 13, 256), 3, 2, 1))
+TRAIN_POOLS = ("pool1", "pool2", "pool5")
 # apps/imagenet_app.py:default_config — the ImageNet app's solver
 IMAGENET_SOLVER = dict(base_lr=0.01, momentum=0.9, weight_decay=0.0005,
                        lr_policy="step", gamma=0.1, stepsize=100000,
@@ -138,6 +146,80 @@ def time_ms(fn, inputs, min_iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dev_us(e) -> float:
+    """A profiler row's own device time, µs."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, inputs, iters: int = 20):
+    """Device ms per call with the calls back to back on the card, or None
+    when it cannot be measured: the stream is held by a sleep kernel while
+    the host queues the calls between two CUDA events, so the host's
+    launch overhead (the wrappers' Python) does not pace them as it does
+    in `time_ms`. The sleep lasts four times the host's queueing time (at
+    2 GHz; the card's clock is at most 1.98 GHz, so at least that long).
+    If queueing took more than half of it — the host was slower than
+    estimated — it is measured again over half as many calls (at least 2)
+    with a longer sleep; after 8 tries the host could not get ahead of the
+    card, and the time is reported as not measured. Warm-up first; the
+    calls cycle through `inputs` as `time_ms`'s do."""
+    import torch
+    for i in range(min(len(inputs), 5)):
+        fn(inputs[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(inputs[0])
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(8):
+        torch.cuda.synchronize()
+        sleep_s = min(max(5e-3, 4 * iters * host_s), 2.0)
+        torch.cuda._sleep(int(sleep_s * 2e9))
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+        end.record()
+        queued_s = time.perf_counter() - t0
+        end.synchronize()
+        if queued_s <= sleep_s / 2:
+            return start.elapsed_time(end) / iters
+        host_s = queued_s / iters
+        iters = max(2, iters // 2)
+    print(f"device_ms: not measured: the host could not queue {iters} calls"
+          f" ahead of the card ({queued_s:.3f} s to queue)", flush=True)
+    return None
+
+
+#: the times of a row of the kernels line: the kernel, its plain version
+#: and the library call, host-paced (`time_ms`); the kernel back to back
+#: on the card (`device_ms`, None when not measured)
+TIME_KEYS = ("ms", "plain_ms", "library_ms", "device_ms")
+
+
+def _timings(fns: dict, inputs, kernels=("ms",)) -> dict:
+    """`time_ms` of each function in `fns`, under its key; for the keys in
+    `kernels`, also `device_ms` under device_<key>."""
+    out = {key: time_ms(fn, inputs) for key, fn in fns.items()}
+    for key in kernels:
+        out[f"device_{key}"] = device_ms(fns[key], inputs)
+    return out
+
+
+def _add(a, b):
+    """a + b, None (not measured) if either is."""
+    return None if a is None or b is None else a + b
+
+
+def _fmt_times(t: dict) -> str:
+    dev = t["device_ms"]
+    return (f"kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
+            f"library_ms={t['library_ms']:.5f} kernel_device_ms="
+            f"{'not measured' if dev is None else f'{dev:.5f}'}")
 
 
 def lrn_bound(n: int, h: int, w: int, c: int, itemsize: int,
@@ -179,7 +261,7 @@ def phase_kernels(card: str) -> dict:
 
     p = LRN_PARAMS
     gen = torch.Generator(device="cuda").manual_seed(0)
-    agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+    agg = {**dict.fromkeys(TIME_KEYS, 0.0), "bound_ms": 0.0,
            "max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "bound_by": "bytes"}
     for layer, (h, w, c) in LRN_SHAPES.items():
         for n in LRN_BUCKETS:
@@ -201,21 +283,20 @@ def phase_kernels(card: str) -> dict:
                 else:
                     ok = bool((err <= bf16_ulp(yp)).all())
                     tol = "1 bf16 ulp"
-                kernel_ms = time_ms(lambda t: lrn_fwd(t, **p), xs)
-                plain_ms = time_ms(lambda t: lrn_plain(t, **p), xs)
-                library_ms = time_ms(
-                    lambda t: F.local_response_norm(
-                        t.permute(0, 3, 1, 2), p["local_size"],
-                        alpha=p["alpha"], beta=p["beta"], k=p["k"]), xs)
+                fns = {"ms": lambda t: lrn_fwd(t, **p),
+                       "plain_ms": lambda t: lrn_plain(t, **p),
+                       "library_ms": lambda t: F.local_response_norm(
+                           t.permute(0, 3, 1, 2), p["local_size"],
+                           alpha=p["alpha"], beta=p["beta"], k=p["k"])}
+                t = _timings(fns, xs)
                 b = lrn_bound(n, h, w, c, itemsize, p["local_size"])
                 dname = str(dtype).replace("torch.", "")
                 print(f"lrn_fwd {layer} n={n} {dname} shape=({n},{h},{w},"
                       f"{c}) max_abs_err={max_err:.3e} tol=[{tol}] "
-                      f"{'PASS' if ok else 'FAIL'} kernel_ms={kernel_ms:.5f}"
-                      f" plain_ms={plain_ms:.5f} library_ms={library_ms:.5f}"
-                      f" bound_ms={b['bound_ms']:.5f} ({b['bound_by']}, "
+                      f"{'PASS' if ok else 'FAIL'} {_fmt_times(t)} "
+                      f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}, "
                       f"{b['bytes']} B) achieved_GBps="
-                      f"{b['bytes'] / kernel_ms / 1e6:.1f} [{card}]",
+                      f"{b['bytes'] / t['ms'] / 1e6:.1f} [{card}]",
                       flush=True)
                 if not ok:
                     fail(f"lrn_fwd disagrees with the plain version at "
@@ -225,9 +306,8 @@ def phase_kernels(card: str) -> dict:
                     if n == 128:  # one bucket-128 forward's LRN work
                         if b["bound_by"] != "bytes":
                             agg["bound_by"] = b["bound_by"]
-                        agg["ms"] += kernel_ms
-                        agg["plain_ms"] += plain_ms
-                        agg["library_ms"] += library_ms
+                        for key in TIME_KEYS:
+                            agg[key] = _add(agg[key], t[key])
                         agg["bound_ms"] += b["bound_ms"]
                 else:
                     agg["max_abs_err_bf16"] = max(agg["max_abs_err_bf16"],
@@ -343,35 +423,29 @@ def phase_lrn_train_kernels(card: str) -> dict:
                       for i in idx]
                 ylib = [F.local_response_norm(t, ls, alpha=a, beta=b, k=k)
                         for t in xg]
-                t = {
-                    "fwd_scale": time_ms(
-                        lambda i: lrn_fwd(xs[i], **p, with_scale=True), idx),
-                    "fwd_y": time_ms(lambda i: lrn_fwd(xs[i], **p), idx),
-                    "plain_fwd_scale": time_ms(
-                        lambda i: lrn_plain_with_scale(xs[i], **p), idx),
-                    "plain_fwd_y": time_ms(lambda i: lrn_plain(xs[i], **p),
-                                           idx),
-                    "lib_fwd": time_ms(
-                        lambda i: F.local_response_norm(
-                            xs[i].permute(0, 3, 1, 2), ls, alpha=a, beta=b,
-                            k=k), idx),
-                    "bwd_saved": time_ms(
-                        lambda i: lrn_bwd(xs[i], dys[i], scales[i], ls, a, b,
-                                          k), idx),
-                    "bwd_recompute": time_ms(
-                        lambda i: lrn_bwd(xs[i], dys[i], None, ls, a, b, k),
-                        idx),
-                    "plain_bwd_saved": time_ms(
-                        lambda i: lrn_bwd_plain(xs[i], dys[i], scales[i], ls,
-                                                a, b, k), idx),
-                    "plain_bwd_recompute": time_ms(
-                        lambda i: lrn_bwd_plain(xs[i], dys[i], None, ls, a,
-                                                b, k), idx),
-                    "lib_bwd": time_ms(
-                        lambda i: torch.autograd.grad(
-                            ylib[i], xg[i], dys[i].permute(0, 3, 1, 2),
-                            retain_graph=True), idx),
+                fns = {
+                    "fwd_scale": lambda i: lrn_fwd(xs[i], **p,
+                                                   with_scale=True),
+                    "fwd_y": lambda i: lrn_fwd(xs[i], **p),
+                    "plain_fwd_scale": lambda i: lrn_plain_with_scale(
+                        xs[i], **p),
+                    "plain_fwd_y": lambda i: lrn_plain(xs[i], **p),
+                    "lib_fwd": lambda i: F.local_response_norm(
+                        xs[i].permute(0, 3, 1, 2), ls, alpha=a, beta=b, k=k),
+                    "bwd_saved": lambda i: lrn_bwd(xs[i], dys[i], scales[i],
+                                                   ls, a, b, k),
+                    "bwd_recompute": lambda i: lrn_bwd(xs[i], dys[i], None,
+                                                       ls, a, b, k),
+                    "plain_bwd_saved": lambda i: lrn_bwd_plain(
+                        xs[i], dys[i], scales[i], ls, a, b, k),
+                    "plain_bwd_recompute": lambda i: lrn_bwd_plain(
+                        xs[i], dys[i], None, ls, a, b, k),
+                    "lib_bwd": lambda i: torch.autograd.grad(
+                        ylib[i], xg[i], dys[i].permute(0, 3, 1, 2),
+                        retain_graph=True),
                 }
+                t = _timings(fns, idx, kernels=("fwd_scale", "fwd_y",
+                                                "bwd_saved", "bwd_recompute"))
                 bounds = {
                     "fwd_scale": lrn_fwd_scale_bound(rows, c, itemsize, ls),
                     "fwd_y": lrn_bound(n, h, w, c, itemsize, ls),
@@ -392,16 +466,15 @@ def phase_lrn_train_kernels(card: str) -> dict:
                         ("bwd_saved", "plain_bwd_saved", "lib_bwd"),
                         ("bwd_recompute", "plain_bwd_recompute", "lib_bwd")):
                     bd = bounds[kind]
+                    row = {"ms": t[kind], "plain_ms": t[plain_key],
+                           "library_ms": t[lib_key],
+                           "device_ms": t[f"device_{kind}"]}
                     print(f"lrn_train   {kind:13s} {layer} n={n} {dn} "
-                          f"kernel_ms={t[kind]:.5f} plain_ms="
-                          f"{t[plain_key]:.5f} library_ms={t[lib_key]:.5f}"
-                          f" bound_ms={bd['bound_ms']:.5f} ({bd['bound_by']}"
-                          f", {bd['bytes']} B) achieved_GBps="
-                          f"{bd['bytes'] / t[kind] / 1e6:.1f} [{card}]",
-                          flush=True)
-                    out["cases"][(kind, layer, n, dn)] = {
-                        "ms": t[kind], "plain_ms": t[plain_key],
-                        "library_ms": t[lib_key], **bd}
+                          f"{_fmt_times(row)} bound_ms={bd['bound_ms']:.5f} "
+                          f"({bd['bound_by']}, {bd['bytes']} B) "
+                          f"achieved_GBps={bd['bytes'] / row['ms'] / 1e6:.1f}"
+                          f" [{card}]", flush=True)
+                    out["cases"][(kind, layer, n, dn)] = {**row, **bd}
                 if not ok:
                     fail(f"LRN training kernels disagree with their plain "
                          f"versions at {layer} n={n} {dn}: {errs}")
@@ -410,8 +483,10 @@ def phase_lrn_train_kernels(card: str) -> dict:
 
 
 def phase_pool_kernels(card: str) -> dict:
-    """maxpool_bwd against its plain version on tie-heavy inputs; returns
-    the rows of the kernels line."""
+    """maxpool_bwd against its plain version on tie-heavy inputs, and at
+    the training step's pools (pool1/2/5, batch 256, bfloat16) also on
+    dense ones; returns the rows of the kernels line, keyed by (case,
+    dtype, input)."""
     import torch
 
     from sparknet_tpu_torch.ops.cuda_pool import maxpool_bwd
@@ -422,50 +497,62 @@ def phase_pool_kernels(card: str) -> dict:
     out = {"max_abs_err": 0.0, "cases": {}}
     for name, shape, kern, stride, pad in POOL_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            itemsize = torch.finfo(dtype).bits // 8
-            nbuf = _nbuf(math.prod(shape) * itemsize, cap=8)
-            # tie-heavy: a few integer levels, clipped at 0 (post-ReLU)
-            xs = torch.randint(-2, 4, (nbuf,) + shape, generator=gen,
-                               device="cuda").clamp_(min=0).to(dtype)
-            x_nchw = [xs[i].permute(0, 3, 1, 2) for i in range(nbuf)]
-            ys = [_max_forward(t, kern, stride, pad).permute(0, 2, 3, 1)
-                  .contiguous() for t in x_nchw]
-            dys = [torch.randn(ys[0].shape, generator=gen,
-                               device="cuda").to(dtype) for _ in range(nbuf)]
-            got = maxpool_bwd(xs[0], ys[0], dys[0], kern, stride, pad)
-            want = maxpool_bwd_plain(xs[0], ys[0], dys[0], kern, stride, pad)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            same_pos = torch.equal(got != 0, want != 0)
-            ok = torch.equal(got, want) and same_pos
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-            idx = list(range(nbuf))
-            xg = [t.detach().requires_grad_() for t in x_nchw]
-            ylib = [_max_forward(t, kern, stride, pad) for t in xg]
-            kernel_ms = time_ms(lambda i: maxpool_bwd(
-                xs[i], ys[i], dys[i], kern, stride, pad), idx)
-            plain_ms = time_ms(lambda i: maxpool_bwd_plain(
-                xs[i], ys[i], dys[i], kern, stride, pad), idx)
-            library_ms = time_ms(lambda i: torch.autograd.grad(
-                ylib[i], xg[i], dys[i].permute(0, 3, 1, 2),
-                retain_graph=True), idx)
-            bd = maxpool_bwd_bound(shape, tuple(ys[0].shape), kern, itemsize)
             dn = _dname(dtype)
-            print(f"maxpool_bwd {name} {dn} x={shape} -> y="
-                  f"{tuple(ys[0].shape)} k={kern} s={stride} pad={pad} "
-                  f"max_abs_err={err:.1e} same_positions={same_pos} "
-                  f"tol=[bitwise] {'PASS' if ok else 'FAIL'} kernel_ms="
-                  f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms="
-                  f"{library_ms:.5f} bound_ms={bd['bound_ms']:.5f} "
-                  f"({bd['bound_by']}, {bd['bytes']} B) achieved_GBps="
-                  f"{bd['bytes'] / kernel_ms / 1e6:.1f} [{card}]", flush=True)
-            out["cases"][(name, dn)] = {"ms": kernel_ms, "plain_ms": plain_ms,
-                                        "library_ms": library_ms, **bd}
-            if not ok:
-                fail(f"maxpool_bwd disagrees with its plain version at "
-                     f"{name} {dn}: max abs err {err}, same positions "
-                     f"{same_pos}")
-            del xs, x_nchw, ys, dys, xg, ylib
+            kinds = ("ties", "dense") if name in TRAIN_POOLS and \
+                dtype == torch.bfloat16 else ("ties",)
+            for kind in kinds:
+                itemsize = torch.finfo(dtype).bits // 8
+                nbuf = _nbuf(math.prod(shape) * itemsize, cap=8)
+                if kind == "ties":
+                    # a few integer levels, clipped at 0 (post-ReLU)
+                    xs = torch.randint(-2, 4, (nbuf,) + shape, generator=gen,
+                                       device="cuda").clamp_(min=0)
+                else:
+                    # ReLU of a Gaussian: ties only among the zeros
+                    xs = torch.randn((nbuf,) + shape, generator=gen,
+                                     device="cuda").clamp_(min=0)
+                xs = xs.to(dtype)
+                x_nchw = [xs[i].permute(0, 3, 1, 2) for i in range(nbuf)]
+                ys = [_max_forward(t, kern, stride, pad).permute(0, 2, 3, 1)
+                      .contiguous() for t in x_nchw]
+                dys = [torch.randn(ys[0].shape, generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(nbuf)]
+                got = maxpool_bwd(xs[0], ys[0], dys[0], kern, stride, pad)
+                want = maxpool_bwd_plain(xs[0], ys[0], dys[0], kern, stride,
+                                         pad)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                same_pos = torch.equal(got != 0, want != 0)
+                ok = torch.equal(got, want) and same_pos
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                idx = list(range(nbuf))
+                xg = [t.detach().requires_grad_() for t in x_nchw]
+                ylib = [_max_forward(t, kern, stride, pad) for t in xg]
+                t = _timings({
+                    "ms": lambda i: maxpool_bwd(xs[i], ys[i], dys[i], kern,
+                                                stride, pad),
+                    "plain_ms": lambda i: maxpool_bwd_plain(
+                        xs[i], ys[i], dys[i], kern, stride, pad),
+                    "library_ms": lambda i: torch.autograd.grad(
+                        ylib[i], xg[i], dys[i].permute(0, 3, 1, 2),
+                        retain_graph=True)}, idx)
+                bd = maxpool_bwd_bound(shape, tuple(ys[0].shape), kern,
+                                       itemsize)
+                print(f"maxpool_bwd {name} {dn} {kind} x={shape} -> y="
+                      f"{tuple(ys[0].shape)} k={kern} s={stride} pad={pad} "
+                      f"max_abs_err={err:.1e} same_positions={same_pos} "
+                      f"tol=[bitwise] {'PASS' if ok else 'FAIL'} "
+                      f"{_fmt_times(t)} bound_ms={bd['bound_ms']:.5f} "
+                      f"({bd['bound_by']}, {bd['bytes']} B) achieved_GBps="
+                      f"{bd['bytes'] / t['ms'] / 1e6:.1f} [{card}]",
+                      flush=True)
+                out["cases"][(name, dn, kind)] = {**t, **bd}
+                if not ok:
+                    fail(f"maxpool_bwd disagrees with its plain version at "
+                         f"{name} {dn} {kind}: max abs err {err}, same "
+                         f"positions {same_pos}")
+                del xs, x_nchw, ys, dys, xg, ylib
     return out
 
 
@@ -601,18 +688,14 @@ def profile_forward(net, rows, card: str, top: int = 12) -> None:
         net.forward(batch, ["prob"])
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # device-side events only: a CPU op's self device time repeats the
     # time of the kernels it launched
     rows_ = sorted((e for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
-                   key=dev_us, reverse=True)
-    copies = sum(dev_us(e) for e in rows_
+                    if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0),
+                   key=_dev_us, reverse=True)
+    copies = sum(_dev_us(e) for e in rows_
                  if e.key.startswith(("Memcpy", "Memset"))) / 1e3
-    kernels = sum(dev_us(e) for e in rows_) / 1e3 - copies
+    kernels = sum(_dev_us(e) for e in rows_) / 1e3 - copies
     print(f"profile: bucket-128 batch: host stack {t_stack * 1e3:.2f} ms, "
           f"H2D copy {t_h2d * 1e3:.2f} ms ({stacked.nbytes} B), forward "
           f"wall {wall * 1e3:.2f} ms, device kernels {kernels:.2f} ms, "
@@ -620,7 +703,7 @@ def profile_forward(net, rows, card: str, top: int = 12) -> None:
           f"{max(0.0, 1 - kernels / (wall * 1e3)):.3f} [{card}]",
           flush=True)
     for e in rows_[:top]:
-        print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
+        print(f"profile:   {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
 
 
@@ -698,7 +781,7 @@ def _expect_counts(label: str, counts: dict, want: dict) -> None:
 
 def phase_train(card: str, device: str = "cuda", crop: int = 227,
                 batch: int = 256, small_batch: int = 100, tau: int = 5,
-                rounds: int = 3, n_classes: int = 1000) -> dict:
+                rounds: int = 6, n_classes: int = 1000) -> dict:
     """Full-width CaffeNet through `apps.train_loop.train` (module
     docstring, phase 4); returns the launch counts of the main run. The
     arguments let the phase be rehearsed on the CPU at a small size, where
@@ -770,19 +853,28 @@ def phase_train(card: str, device: str = "cuda", crop: int = 227,
                 "lrn_fwd": 2 * tau, "lrn_fwd_scale": 2 * tau,
                 "lrn_bwd": 2 * tau, "maxpool_bwd": 3 * tau})
 
-        # the pool route A/B: the plain MAX-pool backward
+        # the pool route A/B: the same rounds with the plain MAX-pool
+        # backward; each route's first round is its warm-up
         plain = _train_run(card, dataclasses.replace(
-            base, max_rounds=2, eval_every=0, pool_impl="plain"), spec,
-            train_ds, None, "pool=plain", device)
+            base, eval_every=0, pool_impl="plain"), spec, train_ds, None,
+            "pool=plain", device)
         if kernels:
             _expect_counts("pool=plain", plain["counts"], {
-                "lrn_fwd": 4 * tau, "lrn_fwd_scale": 0,
-                "lrn_bwd": 4 * tau, "maxpool_bwd": 0})
-        plain_s = plain["rounds"][1]["round_s"]
-        print(f"train: pool route A/B, warm round: auto "
-              f"{[round(x, 4) for x in warm]} s vs plain {plain_s:.4f} s "
-              f"({tau * batch / min(warm):.1f} vs {tau * batch / plain_s:.1f}"
-              f" img/s) [{card}]", flush=True)
+                "lrn_fwd": 2 * steps, "lrn_fwd_scale": 0,
+                "lrn_bwd": 2 * steps, "maxpool_bwd": 0})
+        plain_warm = [x["round_s"] for x in plain["rounds"][1:]]
+
+        def spread(xs):
+            return (f"median {statistics.median(xs) * 1e3:.2f} ms [min "
+                    f"{min(xs) * 1e3:.2f}, max {max(xs) * 1e3:.2f}] over "
+                    f"{len(xs)} warm rounds")
+
+        print(f"train: pool route A/B, rounds of {tau} steps at batch "
+              f"{batch}: auto (kernel) {spread(warm)} = "
+              f"{tau * batch / statistics.median(warm):.1f} img/s; plain "
+              f"{spread(plain_warm)} = "
+              f"{tau * batch / statistics.median(plain_warm):.1f} img/s "
+              f"[{card}]", flush=True)
 
     # kernel route vs plain route gradients, one fixed f32 batch
     precision.set_policy("float32")
@@ -840,7 +932,7 @@ def phase_train(card: str, device: str = "cuda", crop: int = 227,
     precision.set_policy("float32")
     return {"launches": main["counts"], "steps": steps,
             "saved_launches": saved["counts"], "warm_round_s": warm,
-            "plain_pool_round_s": plain_s, "peak_gib": main["peak_gib"],
+            "plain_pool_round_s": plain_warm, "peak_gib": main["peak_gib"],
             "grad_rel_l2": worst}
 
 
@@ -871,34 +963,33 @@ def profile_step(net, params, batch, solver_cfg, card: str,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     rows = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
-                  key=dev_us, reverse=True)
-    kernels = sum(dev_us(e) for e in rows) / 1e3
+                   if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0),
+                  key=_dev_us, reverse=True)
+    kernels = sum(_dev_us(e) for e in rows) / 1e3
     print(f"profile: one training step, caffenet b{batch['data'].shape[0]}"
           f" bf16: wall {wall * 1e3:.2f} ms, device kernels {kernels:.2f} "
           f"ms, kernel idle share {max(0.0, 1 - kernels / (wall * 1e3)):.3f}"
           f" [{card}]", flush=True)
     for e in rows[:top]:
-        print(f"profile:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
+        print(f"profile:   {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
     ours = [e for e in rows if any(k in e.key for k in (
         "lrn_fwd_kernel", "lrn_bwd_kernel", "maxpool_bwd_kernel"))]
     print(f"profile:   the port's kernels: "
-          f"{sum(dev_us(e) for e in ours) / 1e3:.3f} ms of {kernels:.2f} ms"
+          f"{sum(_dev_us(e) for e in ours) / 1e3:.3f} ms of {kernels:.2f} ms"
           f" ({', '.join(f'{e.key[:40]} x{e.count}' for e in ours)})",
           flush=True)
 
 
 def _sum_rows(cases: dict, keys) -> dict:
-    """The per-step sum of timed rows (ms, plain_ms, library_ms,
-    bound_ms) over `keys`."""
-    out = {f: sum(cases[key][f] for key in keys)
-           for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    """The per-step sum of timed rows (`TIME_KEYS`, bound_ms) over
+    `keys`."""
+    out = {}
+    for f in TIME_KEYS + ("bound_ms",):
+        out[f] = 0.0
+        for key in keys:
+            out[f] = _add(out[f], cases[key][f])
     out["bound_by"] = ("bytes" if all(cases[key]["bound_by"] == "bytes"
                                       for key in keys) else "operations")
     return out
@@ -927,9 +1018,11 @@ def main() -> None:
     for name, path in libs.items():
         log = path.with_suffix(".log")
         if log.exists():
+            # per kernel instantiation: its registers, spills, stack
             for line in log.read_text().splitlines():
-                if "ptxas info" in line:
-                    print(f"build: {name}: {line.strip()}", flush=True)
+                if "Used" in line or "spill" in line:
+                    print(f"build: {name}: {line.split(':', 1)[-1].strip()}",
+                          flush=True)
 
     agg = phase_kernels(card)
     lrn_train = phase_lrn_train_kernels(card)
@@ -944,9 +1037,14 @@ def main() -> None:
                          for l in LRN_SHAPES])
     saved = {k: _sum_rows(lc, [(k, l, 100, "float32") for l in LRN_SHAPES])
              for k in ("fwd_scale", "bwd_saved")}
-    mp = _sum_rows(pc, [(n, "bfloat16") for n in ("pool1", "pool2",
-                                                  "pool5")])
-    common = {"route": "cuda", "passed": True, "card": card}
+    mp = {kind: _sum_rows(pc, [(n, "bfloat16", kind) for n in TRAIN_POOLS])
+          for kind in ("ties", "dense")}
+    common = {"route": "cuda", "passed": True, "card": card,
+              "timing": "ms, plain_ms, library_ms: CUDA events over "
+                        "host-paced calls, launch overhead included; "
+                        "device_ms: the kernel's calls queued behind a sleep "
+                        "kernel, back to back on the card (null: not "
+                        "measured)"}
     print(json.dumps({"kernels": [
         {"name": "lrn_fwd",
          "source": "sparknet_tpu_torch/csrc/lrn_fwd.cu",
@@ -958,8 +1056,8 @@ def main() -> None:
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
          "serve_launches": serve["launches"],
-         "serve": {k: agg[k] for k in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms")},
+         "serve": {k: v for k, v in agg.items() if k.endswith("_ms")
+                   or k == "ms"},
          "serve_timed_at": "norm1 + norm2, bucket 128, float32",
          "saved_scale_route_launches": train["saved_launches"][
              "lrn_fwd_scale"],
@@ -981,8 +1079,11 @@ def main() -> None:
          "source": "sparknet_tpu_torch/csrc/maxpool_bwd.cu",
          "replaces": "sparknet_tpu/ops/pallas_pool.py:61",
          "launches": train["launches"]["maxpool_bwd"],
-         "max_abs_err": pool["max_abs_err"], **mp,
-         "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16",
+         "max_abs_err": pool["max_abs_err"], **mp["ties"],
+         "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
+                     "tie-heavy input",
+         "dense": mp["dense"],
+         "dense_timed_at": "the same, ReLU-of-Gaussian input",
          **common}],
         "train_steps": train["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,13 @@ N-minor kernel for N % 128 == 0). `lrn_bwd` replaces their backwards,
 scale recomputed). Each kernel serves both routes on the contiguous
 (rows, C) view of an NCHW activation held in channels_last memory.
 
-Both kernels are bound by HBM bytes; one warp stages a row's C channels in
-shared memory and computes every clipped window from there. See the
-sources.
+Both kernels are bound by HBM bytes. In `lrn_fwd` one warp stages a row's
+C channels in shared memory and computes every clipped window from there.
+`lrn_bwd` takes tiles of whole rows (at most 4 KB of each input, one
+contiguous run): a persistent grid copies each tile into shared memory with 16-byte
+`cp.async` copies, double-buffered so the next tile loads while this one
+computes, runs both passes over the tile with every thread busy whatever C
+is, and stores dx with 16-byte stores. See the sources.
 
 A wrapper launches its kernel for a CUDA tensor and counts the launch
 (`lrn_fwd.launches`, `lrn_bwd.launches`; `lrn_fwd.scale_launches` counts

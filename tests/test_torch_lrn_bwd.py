@@ -199,23 +199,41 @@ def _need_card():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
 
 
-GPU_SHAPES = [(100, 27, 27, 96), (128, 13, 13, 256), (7, 5), (3, 768)]
+# beside the training shapes: row counts that are not a multiple of the
+# kernel's tile (72900 rows of 96; 333 rows of 1), and C = 1, 5, 7, 256 and
+# 768
+GPU_SHAPES = [(100, 27, 27, 96), (128, 13, 13, 256), (7, 5), (3, 768),
+              (333, 1), (1001, 7), (513, 768)]
+
+
+def _at_offset(t, offset):
+    """t's values in a contiguous slice that starts `offset` elements into
+    a larger buffer (a data pointer off the 16-byte grid for offset 3)."""
+    if offset == 0:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 3])
 @pytest.mark.parametrize("beta", BETAS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", GPU_SHAPES)
-def test_kernels_match_plain_bitwise_on_card(shape, dtype, beta):
+def test_kernels_match_plain_bitwise_on_card(shape, dtype, beta, offset):
     """lrn_fwd's scale output and both lrn_bwd modes equal their plain
-    versions bit for bit; y with the scale equals y without it."""
+    versions bit for bit; y with the scale equals y without it. With
+    offset 3, x, dy and the scale start off the 16-byte grid."""
     _need_card()
     dt = getattr(torch, dtype)
-    x, dy = (torch.from_numpy(a).to("cuda", dt)
+    x, dy = (_at_offset(torch.from_numpy(a).to("cuda", dt), offset)
              for a in _inputs(shape, seed=8))
     before = (cuda_lrn.lrn_fwd.launches, cuda_lrn.lrn_bwd.launches)
     y, scale = cuda_lrn.lrn_fwd(x, N, ALPHA, beta, K, with_scale=True)
     y_only = cuda_lrn.lrn_fwd(x, N, ALPHA, beta, K)
+    scale = _at_offset(scale, offset)
     dx_saved = cuda_lrn.lrn_bwd(x, dy, scale, N, ALPHA, beta, K)
     dx_re = cuda_lrn.lrn_bwd(x, dy, None, N, ALPHA, beta, K)
     assert (cuda_lrn.lrn_fwd.launches, cuda_lrn.lrn_bwd.launches) == (

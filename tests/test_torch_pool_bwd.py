@@ -30,7 +30,8 @@ from sparknet_tpu.ops.pallas_pool import (kernel_api_available,
 from sparknet_tpu.ops.pooling import pool2d as jax_pool2d
 
 from sparknet_tpu_torch.ops import cuda_pool
-from sparknet_tpu_torch.ops.pooling import maxpool_bwd_plain, pool2d
+from sparknet_tpu_torch.ops.pooling import (caffe_pool_output_size,
+                                            maxpool_bwd_plain, pool2d)
 
 torch.set_num_threads(2)
 
@@ -166,6 +167,58 @@ def test_wrapper_rejects_wrong_geometry():
                               torch.zeros(1, 5, 5, 2), 2, 2, 2)
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape,k,s,pad", CASES + [
+    ((256, 55, 55, 96), 3, 2, 0), ((256, 27, 27, 256), 3, 2, 0),
+    ((256, 13, 13, 256), 3, 2, 0), ((100, 32, 32, 32), 3, 2, 0),
+    ((4, 28, 28, 20), 2, 2, 0), ((4, 14, 14, 50), 2, 2, 0),
+    ((1, 260, 260, 1), 130, 1, 0)])
+def test_plan_tiles_fit_shared_memory(shape, k, s, pad, itemsize):
+    """Every tile the wrapper plans fits an SM's shared memory, splits the
+    channels into power-of-two lane groups, and takes 16-byte vectors
+    exactly where C * itemsize allows; CaffeNet's and cifar10_quick's
+    pools stage in 64 KB (three blocks an SM) with at least 64 bytes of
+    channels and strips of at least 8 rows."""
+    _, h, w, c = shape
+    oh = caffe_pool_output_size(h, k, s, pad)
+    ow = caffe_pool_output_size(w, k, s, pad)
+    p = cuda_pool.plan(h, w, c, oh, ow, k, s, itemsize)
+    v = 16 // itemsize if p.vec else 1
+    assert p.vec == (c % (16 // itemsize) == 0)
+    lanes = p.cb // v
+    assert p.cb % v == 0 and c % p.cb == 0
+    assert lanes & (lanes - 1) == 0 and lanes <= 32
+    assert p.smem == cuda_pool.smem_bytes(h, w, oh, ow, k, s, itemsize,
+                                          p.hb, p.wb, p.cb, p.staged)
+    assert p.smem <= cuda_pool.SMEM_MAX
+    if c % 32 == 0 and k <= 3:
+        assert p.staged and p.vec
+        assert p.smem <= cuda_pool.SMEM_PREFERRED
+        assert p.cb * itemsize >= 64 and p.hb >= min(h, 8)
+    if k == 130:  # x too large to stage: each element rescans
+        assert not p.staged
+
+
+def test_plan_falls_back_to_one_element_when_unaligned():
+    p = cuda_pool.plan(27, 27, 96, 13, 13, 3, 2, 2, aligned=False)
+    assert not p.vec and p.staged
+    assert p.smem <= cuda_pool.SMEM_PREFERRED
+
+
+def test_plan_rescans_only_windows_it_cannot_stage():
+    """A 20-wide window stages (2-byte offsets); at stride 1 a 94-wide one
+    stages in f32 but not a 95-wide one, and a 129-wide one in bf16 but not
+    a 130-wide one; a window wider than 255 always rescans (offsets are at
+    most 2 bytes)."""
+    def staged(hw, k, itemsize):
+        return cuda_pool.plan(hw, hw, 1, hw - k + 1, hw - k + 1, k, 1,
+                              itemsize).staged
+    assert staged(40, 20, 4) and staged(40, 20, 2)
+    assert staged(300, 94, 4) and not staged(300, 95, 4)
+    assert staged(300, 129, 2) and not staged(300, 130, 2)
+    assert not staged(300, 256, 2)
+
+
 # -- on the card ---------------------------------------------------------
 
 def _need_card():
@@ -173,17 +226,65 @@ def _need_card():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
 
 
+# beside CASES on the card: CaffeNet's pool2 and cifar10_quick's pool1 at
+# full width, a pad-1 shape, and shapes aimed at the kernel's tiling —
+# 17 rows (a one-row last strip of 16), 27 rows (a strip of 11), C = 20 and
+# 50 (one element per thread in bf16), 32 and 96 (16-byte vectors), a dx
+# element covered by 4 windows (kernel 2, stride 1), a kernel of 20 (2-byte
+# window offsets) and one of 130 (x too large to stage: each element
+# rescans). The fifth entry, True, forces the rescan on a shape the plan
+# would stage.
+CARD_CASES = [c + (False,) for c in CASES] + [
+    ((256, 27, 27, 96), 3, 2, 0, None),
+    ((100, 32, 32, 32), 3, 2, 0, None),
+    ((8, 13, 13, 64), 3, 2, 1, None),
+    ((2, 17, 17, 32), 3, 2, 0, None),
+    ((4, 27, 27, 96), 3, 2, 0, None),
+    ((4, 28, 28, 20), 2, 2, 0, None),
+    ((4, 14, 14, 50), 2, 2, 0, None),
+    ((2, 10, 10, 8), 2, 1, 0, None),
+    ((2, 40, 40, 8), 20, 1, 0, None),
+    ((1, 260, 260, 1), 130, 1, 0, None),
+    ((4, 27, 27, 96), 3, 2, 0, True),
+    ((2, 9, 9, 3), 3, 1, 1, True),
+    ((1, 8, 8, 2), 2, 3, 0, True),
+]
+
+
+def _card_x(r, shape, inputs):
+    """tie-heavy; dense (ReLU of a Gaussian: ties only among zeros); or
+    tie-heavy with NaNs (NaN windows route nowhere: one at (0, 0), which
+    the first window always covers, and 1% of the rest) and a last channel
+    of -inf (its windows route to their first element)."""
+    if inputs == "dense":
+        return np.maximum(r.standard_normal(shape), 0).astype(np.float32)
+    x = _tie_heavy(r, shape)
+    if inputs == "nonfinite":
+        x[r.random(shape) < 0.01] = np.nan
+        x[..., -1] = -np.inf
+        x[:, 0, 0, 0] = np.nan
+    return x
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["ties", "dense", "nonfinite"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,k,s,pad",
-                         CASES + [((256, 27, 27, 96), 3, 2, 0),
-                                  ((100, 32, 32, 32), 3, 2, 0),
-                                  ((8, 13, 13, 64), 3, 2, 1)])
-def test_kernel_matches_plain_bitwise_on_card(shape, k, s, pad, dtype):
+@pytest.mark.parametrize("shape,k,s,pad,rescan", CARD_CASES)
+def test_kernel_matches_plain_bitwise_on_card(shape, k, s, pad, rescan,
+                                              dtype, inputs, monkeypatch):
     _need_card()
+    if rescan:
+        planned = cuda_pool.plan
+
+        def forced(*args, **kw):
+            p = planned(*args, **kw)
+            return p._replace(staged=False, smem=cuda_pool.smem_bytes(
+                *args[:2], *args[3:8], p.hb, p.wb, p.cb, False))
+
+        monkeypatch.setattr(cuda_pool, "plan", forced)
     dt = getattr(torch, dtype)
     r = np.random.default_rng(sum(shape))
-    x = torch.from_numpy(_tie_heavy(r, shape)).to("cuda", dt)
+    x = torch.from_numpy(_card_x(r, shape, inputs)).to("cuda", dt)
     y = pool2d(x.permute(0, 3, 1, 2), "MAX", k, s, pad).permute(
         0, 2, 3, 1).contiguous()
     dy = torch.from_numpy(r.standard_normal(tuple(y.shape)).astype(
@@ -193,6 +294,8 @@ def test_kernel_matches_plain_bitwise_on_card(shape, k, s, pad, dtype):
     assert cuda_pool.maxpool_bwd.launches == before + 1
     want = maxpool_bwd_plain(x, y, dy, k, s, pad)
     torch.cuda.synchronize()
+    if inputs == "nonfinite":
+        assert bool(y.isnan().any()) and bool((y == float("-inf")).any())
     assert torch.equal(got != 0, want != 0)
     assert torch.equal(got, want)
 
