@@ -10,13 +10,15 @@ N-minor kernel for N % 128 == 0). `lrn_bwd` replaces their backwards,
 scale recomputed). Each kernel serves both routes on the contiguous
 (rows, C) view of an NCHW activation held in channels_last memory.
 
-Both kernels are bound by HBM bytes. In `lrn_fwd` one warp stages a row's
-C channels in shared memory and computes every clipped window from there.
-`lrn_bwd` takes tiles of whole rows (at most 4 KB of each input, one
-contiguous run): a persistent grid copies each tile into shared memory with 16-byte
-`cp.async` copies, double-buffered so the next tile loads while this one
-computes, runs both passes over the tile with every thread busy whatever C
-is, and stores dx with 16-byte stores. See the sources.
+Both kernels are bound by HBM bytes and take tiles of whole rows, one
+contiguous run each, with every thread busy whatever C is. `lrn_fwd` keeps
+its data in registers: each thread loads two 16-byte groups of x (8 KB a
+tile), takes the window's halo from the neighbouring lanes with warp
+shuffles, and stores y (and the scale) with 16-byte stores. `lrn_bwd`
+(at most 4 KB of each input a tile) runs a persistent grid that copies
+each tile into shared memory with 16-byte `cp.async` copies,
+double-buffered so the next tile loads while this one computes, runs both
+passes over the tile, and stores dx with 16-byte stores. See the sources.
 
 A wrapper launches its kernel for a CUDA tensor and counts the launch
 (`lrn_fwd.launches`, `lrn_bwd.launches`; `lrn_fwd.scale_launches` counts
@@ -40,6 +42,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 _libs = {}
+#: each library's channel limit (`<name>_max_channels()`), read at load
+_max_channels = {}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -57,8 +61,20 @@ def _library(name: str) -> ctypes.CDLL:
         getattr(lib, f"{name}_max_channels").restype = ctypes.c_int
         getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
         getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        # a constant of the build: read once, not on every call
+        _max_channels[name] = getattr(lib, f"{name}_max_channels")()
         _libs[name] = lib
     return lib
+
+
+def _launch(device: torch.device, fn, *args) -> int:
+    """fn(*args, stream) on `device`'s current stream. The kernels launch
+    on the thread's current device, so the device context is entered only
+    for a tensor on another card."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def beta_mode(beta: float) -> int:
@@ -77,7 +93,7 @@ def _check_window(local_size: int) -> None:
                          f"(got {local_size})")
 
 
-def _check_cuda(name: str, x: torch.Tensor, lib: ctypes.CDLL) -> int:
+def _check_cuda(name: str, x: torch.Tensor) -> int:
     """The dtype code of x after checking what the kernel takes."""
     code = _DTYPE_CODES.get(x.dtype)
     if code is None:
@@ -86,7 +102,7 @@ def _check_cuda(name: str, x: torch.Tensor, lib: ctypes.CDLL) -> int:
         raise ValueError(f"{name} needs a contiguous (..., C) tensor with "
                          f"C innermost, got strides {x.stride()} for shape "
                          f"{tuple(x.shape)}")
-    cmax = getattr(lib, f"{name}_max_channels")()
+    cmax = _max_channels[name]
     if x.shape[-1] > cmax:
         raise ValueError(f"{name} stages at most {cmax} channels per row, "
                          f"got {x.shape[-1]}")
@@ -115,19 +131,16 @@ def lrn_fwd(x: torch.Tensor, local_size: int = 5, alpha: float = 1e-4,
         raise ValueError(f"lrn_fwd runs on CUDA or CPU tensors, got "
                          f"{x.device}")
     lib = _library("lrn_fwd")
-    code = _check_cuda("lrn_fwd", x, lib)
+    code = _check_cuda("lrn_fwd", x)
     y = torch.empty_like(x)
     scale = torch.empty_like(x) if with_scale else None
     if x.numel() == 0:
         return (y, scale) if with_scale else y
     c = x.shape[-1]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lrn_fwd(x.data_ptr(), y.data_ptr(),
-                          scale.data_ptr() if with_scale else None,
-                          x.numel() // c, c, code, (local_size - 1) // 2,
-                          alpha / local_size, k, beta, beta_mode(beta),
-                          stream)
+    err = _launch(x.device, lib.lrn_fwd, x.data_ptr(), y.data_ptr(),
+                  scale.data_ptr() if with_scale else None, x.numel() // c,
+                  c, code, (local_size - 1) // 2, alpha / local_size, k,
+                  beta, beta_mode(beta))
     _raise_on("lrn_fwd", lib, err)
     lrn_fwd.launches += 1
     if with_scale:
@@ -168,19 +181,17 @@ def lrn_bwd(x: torch.Tensor, dy: torch.Tensor,
     lib = _library("lrn_bwd")
     code = 0
     for t in tensors:
-        code = _check_cuda("lrn_bwd", t, lib)
+        code = _check_cuda("lrn_bwd", t)
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
     c = x.shape[-1]
     alpha_n = alpha / local_size
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lrn_bwd(x.data_ptr(), dy.data_ptr(),
-                          scale.data_ptr() if scale is not None else None,
-                          dx.data_ptr(), x.numel() // c, c, code,
-                          (local_size - 1) // 2, alpha_n, k, beta,
-                          beta_mode(beta), 2.0 * alpha_n * beta, stream)
+    err = _launch(x.device, lib.lrn_bwd, x.data_ptr(), dy.data_ptr(),
+                  scale.data_ptr() if scale is not None else None,
+                  dx.data_ptr(), x.numel() // c, c, code,
+                  (local_size - 1) // 2, alpha_n, k, beta, beta_mode(beta),
+                  2.0 * alpha_n * beta)
     _raise_on("lrn_bwd", lib, err)
     lrn_bwd.launches += 1
     return dx

@@ -9,6 +9,7 @@ carried over as a checkpoint flat map (`start(weights=...)`, through
 """
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -179,8 +180,15 @@ def test_forward_spans_are_traced_when_tracing_is_on(tmp_path):
     net = _lenet(max_batch=2)
     path = tmp_path / "trace.json"
     with InferenceServer(net, ServeConfig(max_batch=2)) as srv:
-        with obs_trace.tracing(str(path)):
+        with obs_trace.tracing(str(path)) as tr:
             srv.infer({"data": np.zeros((28, 28, 1), np.float32)})
+            # the worker resolves the request inside its forward span, so
+            # `infer` can return before the span closes: wait (bounded)
+            # until it has been recorded before tracing stops
+            deadline = time.monotonic() + 5.0
+            while not any(e["name"] == "forward" for e in tr.events()) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.001)
         srv.infer({"data": np.zeros((28, 28, 1), np.float32)})
     events = json.loads(path.read_text())["traceEvents"]
     forwards = [e for e in events if e["name"] == "forward"]

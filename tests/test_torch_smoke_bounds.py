@@ -68,3 +68,24 @@ def test_saved_mode_reads_the_scale_too():
     rows, c = 100 * 27 * 27, 96
     assert cs.lrn_bwd_bound(rows, c, 4, 5, saved=True)["bytes"] == \
         4 * rows * c * 4
+
+
+def test_lrn_fwd_bounds_are_pinned():
+    """lrn_fwd y only at the training step's shapes (b256 bf16, x read and
+    y written: 2 * rows * C * 2 bytes): 71,663,616 + 44,302,336 bytes,
+    0.034617 ms; with the scale at batch 100 in f32 (x read, y and the
+    scale written: 3 * rows * C * 4 bytes): 135,897,600 bytes, 0.040566
+    ms. Both bound by bytes."""
+    cs = _smoke()
+    y_only = [cs.lrn_bound(256, h, w, c, 2, 5)
+              for h, w, c in ((27, 27, 96), (13, 13, 256))]
+    assert [b["bytes"] for b in y_only] == [71663616, 44302336]
+    assert all(b["bound_by"] == "bytes" for b in y_only)
+    assert sum(b["bound_ms"] for b in y_only) == pytest.approx(0.034617,
+                                                               abs=5e-7)
+    scale = [cs.lrn_fwd_scale_bound(100 * h * w, c, 4, 5)
+             for h, w, c in ((27, 27, 96), (13, 13, 256))]
+    assert sum(b["bytes"] for b in scale) == 135897600
+    assert all(b["bound_by"] == "bytes" for b in scale)
+    assert sum(b["bound_ms"] for b in scale) == pytest.approx(0.040566,
+                                                              abs=5e-7)
