@@ -78,7 +78,27 @@ Phases, in order; any failure exits non-zero before the result line:
    another order from run to run; the kernels themselves are bit-equal to
    their plain versions). Prints per-round wall time, img/s, peak device
    memory, the pool route A/B, and one profiled training step.
-5. The kernels line, `{"kernels": [...]}`, then the result line
+5. Checkpoint: the same CaffeNet, solver, bfloat16 and τ = 5 through
+   `apps.train_loop.train` with `checkpoint_dir` (every 2 rounds) in a
+   world of one, on other seeded images, with cuDNN's deterministic
+   algorithms for the whole phase:
+   - 4 rounds with synchronous writes;
+   - 2 rounds with async writes, then a second `train()` that resumes
+     to round 4: every param and momentum tensor torch.equal to the
+     first run's, equal step-4 digests, every step verifies;
+   - a `.caffemodel` of the first run's params through
+     `TorchNet.save_weights` and `load_weights` into a fresh net: its
+     bucket-128 float32 forward equal to the source net's bit for bit;
+   - 6 rounds with the health supervisor and a NaN injected at round 3:
+     exactly one rollback (to step 2, retry 1, lr_scale = lr_backoff),
+     every later round finite with nonfinite 0, finite final params,
+     and the steps written after it untagged (the monitor clears its
+     anomaly window when it rolls back) and carrying the health state.
+   Each run's launch counts are zeroed before and read after: lrn_fwd,
+   lrn_bwd and maxpool_bwd 2, 2 and 3 per executed step, a retried round
+   counted again. Prints each round's wall time, each save's, restore's
+   and stage-1 snapshot's seconds and bytes, and the step sizes on disk.
+6. The kernels line, `{"kernels": [...]}`, then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -711,6 +731,22 @@ def _read_counts() -> dict:
             "lrn_bwd": lrn_bwd.launches, "maxpool_bwd": maxpool_bwd.launches}
 
 
+def _capture_logger():
+    """A Logger that keeps every metrics record (rounds and events) in
+    memory, in `.records`."""
+    from sparknet_tpu_torch.utils.logger import Logger
+
+    class Capture(Logger):
+        def __init__(self):
+            super().__init__(echo=False)
+            self.records = []
+
+        def metrics(self, step, **kv):
+            self.records.append(dict(kv, round=step))
+
+    return Capture()
+
+
 def _train_run(card: str, cfg, spec, train_ds, test_ds, label: str,
                device: str) -> dict:
     """One `train()` call with its launch counts zeroed before and read
@@ -719,18 +755,8 @@ def _train_run(card: str, cfg, spec, train_ds, test_ds, label: str,
     import torch
 
     from sparknet_tpu_torch.apps.train_loop import train
-    from sparknet_tpu_torch.utils.logger import Logger
 
-    class Capture(Logger):
-        def __init__(self):
-            super().__init__(echo=False)
-            self.rounds = []
-
-        def metrics(self, step, **kv):
-            if "loss" in kv:
-                self.rounds.append(dict(kv, round=step))
-
-    log = Capture()
+    log = _capture_logger()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _zero_counts()
@@ -742,24 +768,25 @@ def _train_run(card: str, cfg, spec, train_ds, test_ds, label: str,
     counts = _read_counts()
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30
             if device == "cuda" else 0.0)
-    for r in log.rounds:
+    rounds = [r for r in log.records if "loss" in r]
+    for r in rounds:
         print(f"train[{label}]: round {r['round']} loss {r['loss']:.6f} "
               f"grad_norm {r.get('grad_norm')} nonfinite {r.get('nonfinite')}"
               f" round_s {r['round_s']:.4f} img/s {r['images_per_sec']:.1f} "
               f"[{card}]", flush=True)
-    print(f"train[{label}]: {len(log.rounds)} rounds in {wall:.2f}s wall "
+    print(f"train[{label}]: {len(rounds)} rounds in {wall:.2f}s wall "
           f"(set-up included), launches {counts}, peak device memory "
           f"{peak:.2f} GiB [{card}]", flush=True)
-    for r in log.rounds:
+    for r in rounds:
         vals = [r["loss"], r.get("grad_norm", 0.0)]
         if not all(math.isfinite(v) for v in vals) or r.get("nonfinite"):
             fail(f"train[{label}] round {r['round']}: loss {r['loss']}, "
                  f"grad_norm {r.get('grad_norm')}, nonfinite "
                  f"{r.get('nonfinite')}")
-    if len(log.rounds) != cfg.max_rounds:
-        fail(f"train[{label}]: {len(log.rounds)} rounds logged, want "
+    if len(rounds) != cfg.max_rounds:
+        fail(f"train[{label}]: {len(rounds)} rounds logged, want "
              f"{cfg.max_rounds}")
-    return {"rounds": log.rounds, "counts": counts, "state": state,
+    return {"rounds": rounds, "counts": counts, "state": state,
             "peak_gib": peak}
 
 
@@ -925,6 +952,256 @@ def phase_train(card: str, device: str = "cuda", crop: int = 227,
             "grad_rel_l2": worst}
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_checkpoint(card: str, device: str = "cuda", crop: int = 227,
+                     batch: int = 256, tau: int = 5,
+                     n_classes: int = 1000) -> dict:
+    """Checkpoints, resume and rollback of full-width CaffeNet through
+    `apps.train_loop.train` (module docstring, phase 5); returns the
+    launch counts and the save and restore times. The arguments let the
+    phase be rehearsed on the CPU at a small size (counts then 0)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import precision, zoo
+    from sparknet_tpu_torch.apps.train_loop import train
+    from sparknet_tpu_torch.data.dataset import ArrayDataset
+    from sparknet_tpu_torch.net_api import TorchNet
+    from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+    from sparknet_tpu_torch.solver import SolverConfig
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+    from sparknet_tpu_torch.utils.config import RunConfig
+    from sparknet_tpu_torch.utils.health import HealthConfig
+
+    r = np.random.default_rng(1)
+    n = tau * batch
+    data = r.integers(-128, 128, (n, crop, crop, 3), dtype=np.int8)
+    labels = r.integers(0, n_classes, (n, 1)).astype(np.int32)
+    train_ds = ArrayDataset({"data": data, "label": labels})
+    spec = zoo.caffenet(batch=batch, crop=crop, n_classes=n_classes)
+    kernels = device == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    # every save, restore and stage-1 snapshot of this phase, timed
+    timed = []
+    lock = threading.Lock()
+    originals = (ckpt.save, ckpt.restore_flat, ckpt.restore_newest_verified,
+                 ParallelTrainer.checkpoint_tree)
+
+    def note(what, t0, nbytes, step):
+        with lock:
+            timed.append({"what": what, "s": time.perf_counter() - t0,
+                          "bytes": nbytes, "step": step,
+                          "thread": threading.current_thread().name})
+
+    def flat_bytes(flat):
+        return sum(int(a.numel() * a.element_size())
+                   if isinstance(a, torch.Tensor) else int(a.nbytes)
+                   for a in flat.values())
+
+    def save(directory, tree, *, step, extra=None):
+        t0 = time.perf_counter()
+        path = originals[0](directory, tree, step=step, extra=extra)
+        note("save", t0, _dir_bytes(path), step)
+        return path
+
+    def restore_flat(directory, step=None):
+        t0 = time.perf_counter()
+        out = originals[1](directory, step)
+        note("restore", t0, flat_bytes(out[0]), out[1])
+        return out
+
+    def restore_newest_verified(directory, skip_anomalous=False):
+        t0 = time.perf_counter()
+        out = originals[2](directory, skip_anomalous=skip_anomalous)
+        if out is not None:
+            note("rollback restore", t0, flat_bytes(out[0]), out[1])
+        return out
+
+    def checkpoint_tree(self, state):
+        t0 = time.perf_counter()
+        tree = originals[3](self, state)
+        note("stage 1 (gather + host copy)", t0, None, None)
+        return tree
+
+    ckpt.save, ckpt.restore_flat = save, restore_flat
+    ckpt.restore_newest_verified = restore_newest_verified
+    ParallelTrainer.checkpoint_tree = checkpoint_tree
+    # cuDNN's deterministic algorithms: the resumed run must be bit-equal
+    # to the uninterrupted one (the kernels are deterministic already)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    steps_of = {}
+
+    def run(label, cfg, n_rounds):
+        log = _capture_logger()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        state = train(cfg, spec, train_ds, None, logger=log, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        rounds = [x for x in log.records if "loss" in x]
+        for x in rounds:
+            print(f"checkpoint[{label}]: round {x['round']} loss "
+                  f"{x['loss']} nonfinite {x.get('nonfinite')} round_s "
+                  f"{x['round_s']:.4f} [{card}]", flush=True)
+        print(f"checkpoint[{label}]: {len(rounds)} rounds in {wall:.2f}s "
+              f"wall (set-up and checkpoints included), launches {counts} "
+              f"[{card}]", flush=True)
+        if len(rounds) != n_rounds:
+            fail(f"checkpoint[{label}]: {len(rounds)} rounds run, want "
+                 f"{n_rounds}")
+        executed = n_rounds * tau  # a retried round runs its steps again
+        steps_of[label] = executed
+        if kernels:
+            _expect_counts(label, counts, {
+                "lrn_fwd": 2 * executed, "lrn_fwd_scale": 0,
+                "lrn_bwd": 2 * executed, "maxpool_bwd": 3 * executed})
+        return state, log.records, counts
+
+    try:
+        base = RunConfig(model="caffenet", n_classes=n_classes, crop=crop,
+                         solver=SolverConfig(**IMAGENET_SOLVER), tau=tau,
+                         local_batch=batch, eval_every=0,
+                         precision="bfloat16", seed=0, workdir=root,
+                         checkpoint_every=2)
+        dir_a, dir_b, dir_c = (os.path.join(root, d) for d in "abc")
+        # 1. uninterrupted, synchronous writes
+        full, _, c1 = run("uninterrupted", dataclasses.replace(
+            base, max_rounds=4, checkpoint_dir=dir_a,
+            checkpoint_async=False), 4)
+        # 2. interrupted after round 2 and resumed, async writes
+        _, _, c2a = run("first half", dataclasses.replace(
+            base, max_rounds=2, checkpoint_dir=dir_b), 2)
+        resumed, _, c2b = run("resumed", dataclasses.replace(
+            base, max_rounds=4, checkpoint_dir=dir_b, resume=True), 2)
+        for kind in ("params", "momentum"):
+            a, b = getattr(full, kind), getattr(resumed, kind)
+            bad = [f"{l}/{p}" for l in a for p in a[l]
+                   if not torch.equal(a[l][p], b[l][p])]
+            if bad:
+                fail(f"checkpoint: the resumed run's {kind} differ from the "
+                     f"uninterrupted run's: {bad}")
+        if resumed.it != full.it:
+            fail(f"checkpoint: resumed it {resumed.it} != {full.it}")
+        sizes = {}
+        for d in (dir_a, dir_b):
+            for name in sorted(os.listdir(d)):
+                path = os.path.join(d, name)
+                if not ckpt.verify(path):
+                    fail(f"checkpoint: {path} does not verify")
+                sizes[f"{os.path.basename(d)}/{name}"] = _dir_bytes(path)
+        metas = [json.load(open(os.path.join(d, "step-4", "meta.json")))
+                 for d in (dir_a, dir_b)]
+        if metas[0]["digests"] != metas[1]["digests"]:
+            fail("checkpoint: step-4 digests of the uninterrupted and the "
+                 "resumed run differ")
+        print(f"checkpoint: the resumed run equals the uninterrupted one "
+              f"(torch.equal on every param and momentum tensor, it "
+              f"{full.it}); step-4 digests equal; every step verifies; "
+              f"step sizes on disk in bytes {sizes} [{card}]", flush=True)
+
+        # 4. weights: .caffemodel out of run 1's params, into a fresh net
+        precision.set_policy("float32")
+        spec128 = zoo.caffenet(batch=128, crop=crop, n_classes=n_classes)
+        src = TorchNet(spec128, seed=0, device=device)
+        src.params = {l: {p: t.detach().clone() for p, t in lp.items()}
+                      for l, lp in full.params.items()}
+        path = os.path.join(root, "caffenet.caffemodel")
+        t0 = time.perf_counter()
+        src.save_weights(path)
+        t_save = time.perf_counter() - t0
+        dst = TorchNet(spec128, seed=1, device=device)
+        t0 = time.perf_counter()
+        dst.load_weights(path)
+        t_load = time.perf_counter() - t0
+        rows = {"data": data[:128], "label": labels[:128]}
+        a, b = src.forward(rows)["prob"], dst.forward(rows)["prob"]
+        if not (np.array_equal(a, b) and np.isfinite(a).all()):
+            fail(f"checkpoint: the .caffemodel round trip's bucket-128 "
+                 f"forward differs (max abs {np.abs(a - b).max()})")
+        print(f"checkpoint: .caffemodel of run 1's params "
+              f"({os.path.getsize(path)} bytes) saved in {t_save:.3f}s, "
+              f"loaded into a fresh net in {t_load:.3f}s; its bucket-128 "
+              f"float32 forward equals the source net's bit for bit "
+              f"[{card}]", flush=True)
+        shutil.rmtree(dir_a)
+        shutil.rmtree(dir_b)
+
+        # 3. rollback: a NaN injected at round 3 (injection poisons float
+        # inputs only, so this run's images are float32; the default
+        # min_history keeps spike classification off for its 6 rounds)
+        health = HealthConfig(inject_nan_rounds=(3,))
+        train_ds = ArrayDataset({"data": data.astype(np.float32),
+                                 "label": labels})
+        roll, recs, c3 = run("rollback", dataclasses.replace(
+            base, max_rounds=6, checkpoint_dir=dir_c, health=health), 8)
+        events = [x for x in recs if x.get("event") == "rollback"]
+        if len(events) != 1 or (events[0]["target_step"], events[0]["retry"],
+                                events[0]["lr_scale"]) != \
+                (2, 1, health.lr_backoff):
+            fail(f"checkpoint: rollback events {events}, want one with "
+                 f"target_step 2, retry 1, lr_scale {health.lr_backoff}")
+        order = [x for x in recs if "loss" in x or x.get("event")]
+        after = order[order.index(events[0]) + 1:]
+        later = [x for x in after if "loss" in x]
+        if [x["round"] for x in later] != [2, 3, 4, 5] or not all(
+                x["loss"] is not None and math.isfinite(x["loss"])
+                and x.get("nonfinite") == 0 for x in later):
+            fail(f"checkpoint: rounds after the rollback {later}")
+        if not all(bool(torch.isfinite(t).all()) for lp in
+                   roll.params.values() for t in lp.values()):
+            fail("checkpoint: the final params after the rollback are not "
+                 "finite")
+        tags = {}
+        for name in sorted(os.listdir(dir_c)):
+            extra = json.load(open(os.path.join(
+                dir_c, name, "meta.json"))).get("extra", {})
+            tags[name] = {"anomalous": extra.get("anomalous", False),
+                          "health": extra.get("health")}
+        # the monitor clears its anomaly window when it rolls back, so
+        # the steps written after the incident are not tagged
+        if tags.get("step-4") != {"anomalous": False, "health": {
+                "retry": 1, "lr_scale": health.lr_backoff,
+                "rollbacks": 1}} or tags.get("step-6", {}).get("anomalous"):
+            fail(f"checkpoint: step tags after the rollback {tags}")
+        print(f"checkpoint: one rollback to step 2 (retry 1, lr_scale "
+              f"{health.lr_backoff}); rounds 2-5 after it finite with "
+              f"nonfinite 0; final params finite; steps {tags} [{card}]",
+              flush=True)
+        ckpt.retain(dir_c, keep=2)
+    finally:
+        ckpt.save, ckpt.restore_flat, ckpt.restore_newest_verified = \
+            originals[:3]
+        ParallelTrainer.checkpoint_tree = originals[3]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        precision.set_policy("float32")
+        shutil.rmtree(root, ignore_errors=True)
+    for t in timed:
+        print(f"checkpoint: {t['what']}"
+              + (f" step {t['step']}" if t["step"] is not None else "")
+              + f": {t['s']:.3f}s"
+              + (f", {t['bytes']} bytes" if t["bytes"] is not None else "")
+              + f" (thread {t['thread']}) [{card}]", flush=True)
+    return {"launches": {"uninterrupted": c1, "first half": c2a,
+                         "resumed": c2b, "rollback": c3},
+            "steps": steps_of, "timed": timed}
+
+
 def profile_step(net, params, batch, solver_cfg, card: str,
                  top: int = 14) -> None:
     """One training step (forward, autograd, SGD update) at the main
@@ -1018,6 +1295,7 @@ def main() -> None:
     pool = phase_pool_kernels(card)
     serve = phase_serve(card)
     train = phase_train(card)
+    ckp = phase_checkpoint(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -1041,6 +1319,8 @@ def main() -> None:
          "replaces": "sparknet_tpu/ops/pallas_lrn.py:51",
          "also_replaces": "sparknet_tpu/ops/pallas_lrn.py:206",
          "launches": train["launches"]["lrn_fwd"],
+         "checkpoint_phase_launches": {
+             k: c["lrn_fwd"] for k, c in ckp["launches"].items()},
          "max_abs_err": max(agg["max_abs_err"], lrn_train["max_abs_err"]),
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
@@ -1058,6 +1338,8 @@ def main() -> None:
          "replaces": "sparknet_tpu/ops/pallas_lrn.py:216",
          "also_replaces": "sparknet_tpu/ops/pallas_lrn.py:62",
          "launches": train["launches"]["lrn_bwd"],
+         "checkpoint_phase_launches": {
+             k: c["lrn_bwd"] for k, c in ckp["launches"].items()},
          "max_abs_err": lrn_train["max_abs_err"], **bwd,
          "timed_at": "norm1 + norm2, batch 256, bfloat16, recompute mode",
          "saved_scale_route_launches": train["saved_launches"]["lrn_bwd"],
@@ -1068,13 +1350,16 @@ def main() -> None:
          "source": "sparknet_tpu_torch/csrc/maxpool_bwd.cu",
          "replaces": "sparknet_tpu/ops/pallas_pool.py:61",
          "launches": train["launches"]["maxpool_bwd"],
+         "checkpoint_phase_launches": {
+             k: c["maxpool_bwd"] for k, c in ckp["launches"].items()},
          "max_abs_err": pool["max_abs_err"], **mp["ties"],
          "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
                      "tie-heavy input",
          "dense": mp["dense"],
          "dense_timed_at": "the same, ReLU-of-Gaussian input",
          **common}],
-        "train_steps": train["steps"]}), flush=True)
+        "train_steps": train["steps"],
+        "checkpoint_phase_steps": ckp["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

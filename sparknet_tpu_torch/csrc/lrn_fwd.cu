@@ -49,12 +49,14 @@
 //
 // Occupancy: kGroups = 2 16-byte groups of x per thread and tile, and at
 // least 8 blocks an SM with the window in registers (a cap of 32
-// registers a thread: a full SM of 2048 threads, two 16-byte loads each
-// in flight, and no spill on the bf16 y-only path). One block takes one
-// tile. Of the variants tried in design runs on an H100 80GB HBM3 at
-// 700.00 W (1, 3 or 4 groups; 4 or 6 blocks; a persistent grid walking
-// the tiles), none was faster on the b256 bf16 training shape, and on the
-// f32 shapes they came out about even (PERF.md, section 6).
+// registers a thread: a full SM of 2048 threads and two 16-byte loads
+// each in flight; under that cap ptxas reports 16 bytes of spill stores
+// on the bf16 y-only path and 36 with the scale, none on the f32 paths).
+// One block takes one tile. Of the variants tried in design runs on an
+// H100 80GB HBM3 at 700.00 W (1, 3 or 4 groups; 4 or 6 blocks; a
+// persistent grid walking the tiles), none was faster on the b256 bf16
+// training shape, and on the f32 shapes they came out about even (PERF.md,
+// section 6).
 //
 // Launch contract: runs on the caller's stream, allocates nothing, does not
 // synchronise. The C entry point returns cudaGetLastError() after the launch

@@ -2,9 +2,9 @@
 
 The counterpart of `sparknet_tpu/net_api.py` (`JaxNet`). `TorchNet` owns a
 `CompiledNet` and its params on one device and exposes forward /
-forward_backward / step / get_weights / set_weights / output_schema, plus
-`load_jax_params` to carry weights over from the JAX package. Save and
-load of weight files wait for the model-file port.
+forward_backward / step / get_weights / set_weights / output_schema /
+save_weights / load_weights, plus `load_jax_params` to carry weights over
+from the JAX package.
 
 Host batches and returned blobs are NHWC numpy arrays, as in the JAX
 package; NCHW batches are recognised and transposed (`_maybe_nhwc`).
@@ -159,3 +159,25 @@ class TorchNet:
             fields.append(Field(name=name, dtype="float32",
                                 shape=tuple(shape[1:]) if shape else ()))
         return Schema(*fields)
+
+    # -- weight files -------------------------------------------------------
+
+    def save_weights(self, path: str) -> None:
+        """Weight-only export (the JAX package's `JaxNet.save_weights`). A
+        `.caffemodel` suffix writes binary Caffe NetParameter; any other
+        path the `WeightCollection` npz."""
+        if path.endswith(".caffemodel"):
+            from .model.caffemodel import save_caffemodel
+            save_caffemodel(self.get_weights(), path,
+                            net_name=self.net.spec.name)
+        else:
+            self.get_weights().save(path)
+
+    def load_weights(self, path: str) -> None:
+        """Weight-only import (`JaxNet.load_weights`): a binary
+        `.caffemodel` (trained Caffe nets import directly) or the npz."""
+        if path.endswith(".caffemodel"):
+            from .model.caffemodel import load_caffemodel_file
+            self.set_weights(load_caffemodel_file(path))
+        else:
+            self.set_weights(WeightCollection.load(path))

@@ -46,6 +46,21 @@ class DataGroup:
         the world size — `lax.pmean`'s order (gloo has no AVG)."""
         return self.all_reduce_sum_(t).div_(self.size)
 
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[size, *t.shape]: every rank's `t`, in rank order (a checkpoint
+        gathers each rank's own momentum this way)."""
+        out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        if self.size == 1:
+            return out.copy_(t[None])
+        dist.all_gather(list(out.unbind(0)), t.contiguous())
+        return out
+
+    def barrier(self) -> None:
+        """Every rank waits here for the others (a world of one returns)."""
+        if self.size > 1:
+            dist.barrier()
+
     def close(self) -> None:
         if self.owned and dist.is_initialized():
             dist.destroy_process_group()

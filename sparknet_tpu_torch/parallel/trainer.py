@@ -22,20 +22,28 @@ each rank of the data group:
 The scalars of a round (mean loss, grad norm, the nonfinite rows and flag)
 are one small all-reduce after the param average.
 
+At the checkpoint boundary (`checkpoint_tree` / `state_from_checkpoint`)
+the state takes the JAX package's replica layout: every leaf has a leading
+[world] axis, params in the JAX layouts (conv HWIO, inner product (in,
+out)) and replicated, momentum gathered per rank (row r is rank r's own,
+never averaged), `it` as [world] int32. Each package restores the other's
+checkpoints.
+
 Not ported yet: elastic τ, tensor parallelism and `resized`; asking for
 any of them raises NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import precision
 from ..model.layers import OpsImpl, seeded_generator
-from ..model.net import CompiledNet, ParamTree
+from ..model.net import (CompiledNet, ParamTree, jax_param_shapes,
+                         params_from_jax)
 from ..solver import SgdSolver, SolverConfig, SolverState, value_and_grad
 from .mesh import DataGroup
 
@@ -133,6 +141,115 @@ class ParallelTrainer:
         flat_m, mom = _flat_tree(momentum or params, vdt, self.device,
                                  zeros=momentum is None)
         return TrainState(views, mom, int(it), flat_p, flat_m)
+
+    # -- the checkpoint boundary ---------------------------------------------
+
+    def _host_leaves(self, host_flat: torch.Tensor, like: ParamTree
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """[rows, total] host copy of a flat buffer laid out as `like` (a
+        state's tree of views) -> {layer: {param: [rows, *JAX shape]}}, in
+        sorted order (the JAX package's leaf order), contiguous."""
+        types = {l.name: l.type for l in self.net.spec.layers}
+        rows = host_flat.shape[0]
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        off = 0
+        for lname, lp in like.items():
+            for pname, v in lp.items():
+                t = host_flat[:, off:off + v.numel()].view((rows,) + v.shape)
+                off += v.numel()
+                if pname == "w" and types[lname] == "Convolution":
+                    t = t.permute(0, 3, 4, 2, 1)   # OIHW -> HWIO
+                elif pname == "w" and types[lname] == "InnerProduct":
+                    t = t.permute(0, 2, 1)         # (out, in) -> (in, out)
+                out.setdefault(lname, {})[pname] = t.contiguous()
+        return {l: dict(sorted(out[l].items())) for l in sorted(out)}
+
+    def checkpoint_tree(self, state: TrainState) -> Dict[str, Any]:
+        """The state in the JAX package's replica layout, as host memory
+        this call owns (a later round's in-place update cannot tear it):
+        {"params": {layer: {param: [world, ...]}}, "momentum": ...,
+        "it": [world] int32}. f32 leaves are numpy; a bfloat16 momentum
+        stays a CPU tensor (the checkpoint store keeps its bits). A
+        collective: every rank must call it (the momentum all-gather)."""
+        world = self.group.size
+        with torch.no_grad():
+            mom_dev = self.group.all_gather(state.flat_momentum)
+            p_host = state.flat_params.detach().to("cpu", copy=True)[None]
+            m_host = mom_dev.to("cpu", copy=True)
+        params = {l: {p: np.broadcast_to(t.numpy(), (world,) + t.shape[1:])
+                      for p, t in lp.items()}
+                  for l, lp in self._host_leaves(p_host,
+                                                 state.params).items()}
+        momentum = {l: {p: (t if t.dtype == torch.bfloat16 else t.numpy())
+                        for p, t in lp.items()}
+                    for l, lp in self._host_leaves(m_host,
+                                                   state.momentum).items()}
+        return {"params": params, "momentum": momentum,
+                "it": np.full((world,), state.it, np.int32)}
+
+    def _check_topology(self, flat: Mapping[str, Any],
+                        extra: Mapping[str, Any]) -> None:
+        """Raise ValueError unless the checkpoint was written by this
+        topology: device count (from `extra`, else the leading axis of
+        `it`), tp, layout and state sharding (the reference's
+        `_restore_state` test)."""
+        saved = extra.get("n_devices")
+        if saved is None and "it" in flat and np.ndim(flat["it"]):
+            saved = np.shape(flat["it"])[0]
+        saved_topo = (int(saved or self.group.size), int(extra.get("tp", 1)),
+                      extra.get("layout", "replica"),
+                      extra.get("state_sharding", "replicated"))
+        here = (self.group.size, 1, "replica", "replicated")
+        if saved_topo != here:
+            raise ValueError(
+                f"checkpoint topology (n_devices, tp, layout, "
+                f"state_sharding) = {saved_topo} != this run's {here}; "
+                f"elastic resize (adapt_state) is not ported yet — resume "
+                f"on the original topology")
+
+    def state_from_checkpoint(self, flat: Mapping[str, Any],
+                              extra: Optional[Mapping[str, Any]] = None
+                              ) -> TrainState:
+        """A restored flat map (`checkpoint.restore_flat`, either package's)
+        -> this rank's TrainState: the params row of this rank, its own
+        momentum row and `it`. The topology must be this run's."""
+        self._check_topology(flat, extra or {})
+        r = self.group.rank
+        types = {l.name: l.type for l in self.net.spec.layers}
+        vdt = precision.DTYPES[self.solver.cfg.velocity_dtype]
+        rows = {}
+        for l, lp in jax_param_shapes(self.net).items():
+            rows[l] = {}
+            for p in lp:
+                if f"params/{l}/{p}" not in flat:
+                    raise ValueError(f"checkpoint missing leaf "
+                                     f"'params/{l}/{p}'")
+                rows[l][p] = np.asarray(flat[f"params/{l}/{p}"])[r]
+        params = params_from_jax(self.net, rows, torch.device("cpu"))
+        momentum: ParamTree = {}
+        for lname, lp in params.items():
+            momentum[lname] = {}
+            for pname, w in lp.items():
+                key = f"momentum/{lname}/{pname}"
+                if key not in flat:
+                    raise ValueError(f"checkpoint missing leaf {key!r}")
+                m = flat[key][r]
+                m = m if isinstance(m, torch.Tensor) else torch.from_numpy(
+                    np.ascontiguousarray(m))
+                if m.dtype != vdt:
+                    raise ValueError(
+                        f"{key}: checkpoint dtype {m.dtype} != the solver's "
+                        f"velocity_dtype {self.solver.cfg.velocity_dtype}")
+                if pname == "w" and types[lname] == "Convolution":
+                    m = m.permute(3, 2, 0, 1)  # HWIO -> OIHW
+                elif pname == "w" and types[lname] == "InnerProduct":
+                    m = m.t()
+                if tuple(m.shape) != tuple(w.shape):
+                    raise ValueError(f"{key}: shape {tuple(m.shape)} != net "
+                                     f"{tuple(w.shape)} (port layout)")
+                momentum[lname][pname] = m
+        it = int(np.asarray(flat["it"]).reshape(-1)[r])
+        return self.state_from_params(params, momentum, it)
 
     # -- one round -----------------------------------------------------------
 

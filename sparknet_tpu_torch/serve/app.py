@@ -1,16 +1,19 @@
-"""The serve CLI of the PyTorch port: one zoo model behind the inference server.
+"""The serve CLI of the PyTorch port: one model behind the inference server.
 
 The counterpart of the single-model path of `sparknet_tpu/serve/app.py`.
-Builds a zoo net on the device (the CUDA card unless `--device cpu`),
-starts the dynamic-batching server, and either self-drives `--demo N`
-synthetic requests through submit -> batch -> forward -> de-pad and prints
-the status JSON, or serves until interrupted. The router, the network
+Builds a zoo net or a `.prototxt` net on the device (the CUDA card unless
+`--device cpu`) with `--weights` (`.npz` or `.caffemodel`) or seeded
+random ones, starts the dynamic-batching server, and either self-drives
+`--demo N` synthetic requests through submit -> batch -> forward -> de-pad
+and prints the status JSON, or serves until interrupted. The router, the network
 frontends and the fleet come with later slices.
 
 Examples:
     python -m sparknet_tpu_torch.serve.app --model caffenet --max-batch 128 \
         --outputs prob --demo 256
     python -m sparknet_tpu_torch.serve.app --model lenet --device cpu --demo 8
+    python -m sparknet_tpu_torch.serve.app --model deploy.prototxt \
+        --weights trained.caffemodel --device cpu --demo 8
 """
 from __future__ import annotations
 
@@ -29,8 +32,12 @@ from .server import InferenceServer, ServeConfig, net_input_specs
 
 def resolve_spec(model: str, max_batch: int, n_classes: int,
                  crop: Optional[int]):
-    """A zoo builder name -> NetSpec at batch max_batch (the same table as
-    `sparknet_tpu/apps/train_loop.py:resolve_spec`, zoo names only)."""
+    """A `.prototxt` path (at its own input shapes) or a zoo builder name
+    at batch max_batch -> NetSpec (the same table as
+    `sparknet_tpu/apps/train_loop.py:resolve_spec`)."""
+    if model.endswith(".prototxt"):
+        from ..model.prototxt import net_from_prototxt_file
+        return net_from_prototxt_file(model)
     builders = {
         "cifar10_quick": lambda: zoo.cifar10_quick(batch=max_batch),
         "caffenet": lambda: zoo.caffenet(batch=max_batch, crop=crop or 227,
@@ -39,8 +46,8 @@ def resolve_spec(model: str, max_batch: int, n_classes: int,
         "adult_mlp": lambda: zoo.adult_mlp(batch=max_batch),
     }
     if model not in builders:
-        raise ValueError(f"unknown model {model!r}: expected one of "
-                         f"{sorted(builders)}")
+        raise ValueError(f"unknown model {model!r}: expected a .prototxt "
+                         f"path or one of {sorted(builders)}")
     return builders[model]()
 
 
@@ -65,7 +72,11 @@ def run_demo(server: InferenceServer, n: int, seed: int = 0) -> dict:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--model", default="lenet", help="zoo builder name")
+    p.add_argument("--model", default="lenet",
+                   help="zoo builder name or a .prototxt path")
+    p.add_argument("--weights", default=None,
+                   help="weights to load: .npz (WeightCollection) or "
+                   ".caffemodel (default: seeded random)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' to run there)")
     p.add_argument("--seed", type=int, default=0,
@@ -91,6 +102,8 @@ def main(argv=None) -> None:
     net = TorchNet(resolve_spec(args.model, args.max_batch, args.n_classes,
                                 args.crop),
                    seed=args.seed, device=args.device)
+    if args.weights:
+        net.load_weights(args.weights)
     cfg = ServeConfig(
         model_name=args.model, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,

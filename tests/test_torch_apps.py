@@ -7,6 +7,7 @@ on the JAX side, a world of one on the port's) and log their per-round
 losses, held within rtol 1e-4 (convolution sums run in another order),
 and their test accuracies, held exactly.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -102,12 +103,13 @@ class _Stream:
 
 
 REFUSED = {
-    "checkpoint_dir": dict(checkpoint_dir="ck"),
+    "checkpoint_dir=gs://b/ck": dict(checkpoint_dir="gs://b/ck"),
+    "checkpoint_sharded=on": dict(checkpoint_dir="ck",
+                                  checkpoint_sharded="on"),
     "elastic": dict(elastic=ElasticConfig(enabled=True)),
     "trainer_impl": dict(trainer_impl="named"),
     "state_sharding": dict(state_sharding="momentum"),
     "heartbeat_path": dict(heartbeat_path="hb.json"),
-    "solver_prototxt": dict(solver_prototxt="solver.prototxt"),
     "streaming ingest": {},
 }
 
@@ -135,6 +137,12 @@ def test_jax_only_kernel_routes_raise_naming_the_ports(knob, value):
     assert getattr(JaxRunConfig(**{knob: value}), knob) == value
 
 
-def test_prototxt_models_wait_for_the_model_file_port():
-    with pytest.raises(NotImplementedError, match="prototxt"):
-        resolve_spec(RunConfig(model="net.prototxt"))
+def test_prototxt_models_resolve_like_the_jax_packages(tmp_path):
+    from test_prototxt import ADULT
+    path = tmp_path / "adult.prototxt"
+    path.write_text(ADULT)
+    shapes = dict(C0=(8, 1))
+    got = resolve_spec(RunConfig(model=str(path)), **shapes)
+    want = jax_resolve_spec(JaxRunConfig(model=str(path)), **shapes)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.inputs[0].shape == (8, 1)
