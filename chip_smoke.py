@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: does the port serve and train
-CaffeNet on the card?
+CaffeNet on the card, through the ImageNet app from JPEG shards too?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -98,7 +98,31 @@ Phases, in order; any failure exits non-zero before the result line:
    lrn_bwd and maxpool_bwd 2, 2 and 3 per executed step, a retried round
    counted again. Prints each round's wall time, each save's, restore's
    and stage-1 snapshot's seconds and bytes, and the step sizes on disk.
-6. The kernels line, `{"kernels": [...]}`, then the result line
+6. ImageNet: full-width CaffeNet (crop 227, 1000 classes, b256, τ = 5,
+   bfloat16, the app's solver) through the ImageNet app in a world of one,
+   with cuDNN's deterministic algorithms. A corpus of 2560 train JPEGs in
+   8 tar shards and 256 val JPEGs (256x256, `data/imagenet.py:
+   write_synthetic_shards`, PIL) is written to a temporary directory.
+   - The app's own `main()` trains one round (the warm-up) and evaluates
+     once: the round's loss finite with nonfinite 0, the eval accuracy line
+     present, lrn_fwd / lrn_bwd / maxpool_bwd 2 / 2 / 3 per step plus
+     lrn_fwd's 2 per eval forward.
+   - `prepare_data` (the app's decode and mean image, timed), then the
+     same `train()` that `main()` calls on that data, 6 rounds a run:
+     levers on (the defaults: the round-prep thread, h2d_prefetch,
+     donate_batches, collect_async; log_every 1, telemetry on) and levers
+     off (those three off and each round prepared on the main thread:
+     the synchronous loop), in 3 alternating pairs. Per round: loss,
+     round_s, the breakdown (t_data_ms, t_h2d_ms, t_round_ms,
+     t_collect_ms / t_collect_bg_ms, the round prep's own t_prep_ms) and
+     the H2D bytes; per run: their medians and ranges over the warm rounds,
+     img/s and the preprocessing route (native or numpy). Checks: every
+     loss finite with nonfinite 0; every run's losses and final flat
+     params torch.equal to the first run's; launches 2 / 2 / 3 per step;
+     each run's first round, as `train_round` received it (placed on the
+     card when the levers are on), torch.equal to `prepare_round_batches`
+     on the host.
+7. The kernels line, `{"kernels": [...]}`, then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -773,7 +797,8 @@ def _train_run(card: str, cfg, spec, train_ds, test_ds, label: str,
         print(f"train[{label}]: round {r['round']} loss {r['loss']:.6f} "
               f"grad_norm {r.get('grad_norm')} nonfinite {r.get('nonfinite')}"
               f" round_s {r['round_s']:.4f} img/s {r['images_per_sec']:.1f} "
-              f"[{card}]", flush=True)
+              f"(the round; the data wait t_data_ms {r.get('t_data_ms')} "
+              f"comes before it) [{card}]", flush=True)
     print(f"train[{label}]: {len(rounds)} rounds in {wall:.2f}s wall "
           f"(set-up included), launches {counts}, peak device memory "
           f"{peak:.2f} GiB [{card}]", flush=True)
@@ -1202,6 +1227,219 @@ def phase_checkpoint(card: str, device: str = "cuda", crop: int = 227,
             "steps": steps_of, "timed": timed}
 
 
+def _stats(xs) -> str:
+    if not xs:
+        return "n/a"
+    return (f"median {statistics.median(xs):.3f} [min {min(xs):.3f}, max "
+            f"{max(xs):.3f}]")
+
+
+def phase_imagenet(card: str, device: str = "cuda", crop: int = 227,
+                   batch: int = 256, tau: int = 5, n_classes: int = 1000,
+                   size: int = 256, n_train: int = 2560, n_val: int = 256,
+                   shards: int = 8, pairs: int = 3, rounds: int = 6) -> dict:
+    """Full-width CaffeNet through the ImageNet app on synthetic JPEG
+    shards (module docstring, phase 6); returns each run's launch counts
+    and steps. The arguments let the phase be rehearsed on the CPU at a
+    small size (counts then 0)."""
+    import argparse
+    import dataclasses
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.apps.train_loop import (prepare_round_batches,
+                                                    resolve_spec, train)
+    from sparknet_tpu_torch.data.dataset import RoundSampler
+    from sparknet_tpu_torch.data.imagenet import write_synthetic_shards
+    from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+
+    kernels = device == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_imagenet_")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    # the levers-on and levers-off runs must be bit-equal
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    launches, steps_of = {}, {}
+    orig_round = ParallelTrainer.train_round
+    try:
+        data_dir = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        write_synthetic_shards(data_dir, n_shards=shards,
+                               per_shard=n_train // shards,
+                               n_classes=n_classes, size=size, seed=0)
+        write_synthetic_shards(data_dir, n_shards=1, per_shard=n_val,
+                               n_classes=n_classes, size=size, seed=1,
+                               prefix="val")
+        print(f"imagenet: corpus of {n_train} train JPEGs in {shards} "
+              f"shards and {n_val} val JPEGs, {size}x{size}, written in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        common = [f"n_classes={n_classes}", f"crop={crop}",
+                  f"local_batch={batch}", f"tau={tau}", "seed=0"]
+        dev_args = ["--device", "cpu"] if device == "cpu" else []
+
+        # 1. the app's own main(): one warm-up round and one evaluation
+        work = os.path.join(root, "main")
+        _zero_counts()
+        t0 = time.perf_counter()
+        imagenet_app.main(["--data-dir", data_dir, *dev_args, *common,
+                           f"workdir={work}", "max_rounds=1",
+                           "eval_every=1"])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        (jsonl,) = glob.glob(os.path.join(work, "training_metrics_*.jsonl"))
+        recs = [json.loads(line) for line in open(jsonl)]
+        losses = [x for x in recs if "loss" in x]
+        accs = [x for x in recs if "test_accuracy" in x]
+        print(f"imagenet[main]: {len(losses)} round in {wall:.2f}s wall "
+              f"(decode, mean and set-up included): loss "
+              f"{[x['loss'] for x in losses]}, test accuracy "
+              f"{[x['test_accuracy'] for x in accs]}, launches {counts} "
+              f"[{card}]", flush=True)
+        if len(losses) != 1 or not all(
+                x["loss"] is not None and math.isfinite(x["loss"])
+                and x.get("nonfinite") == 0 for x in losses):
+            fail(f"imagenet[main]: round records {losses}")
+        if len(accs) != 1:
+            fail(f"imagenet[main]: no eval accuracy line in {recs}")
+        evals = -(-n_val // min(1000, n_val))  # eval_batch 1000
+        launches["main"], steps_of["main"] = counts, tau
+        if kernels:
+            _expect_counts("imagenet main", counts, {
+                "lrn_fwd": 2 * tau + 2 * evals, "lrn_fwd_scale": 0,
+                "lrn_bwd": 2 * tau, "maxpool_bwd": 3 * tau})
+
+        # 2. the same prepared data through the same train(): levers on
+        # (the defaults, the round-prep thread) and off (the synchronous
+        # loop) in alternating pairs
+        p = argparse.ArgumentParser()
+        imagenet_app.add_data_args(p)
+        args = p.parse_args(["--data-dir", data_dir])
+        cfg = imagenet_app.default_config().with_overrides(
+            *common, f"data_dir={data_dir}", f"max_rounds={rounds}",
+            "eval_every=0", "log_every=1", "telemetry=true")
+        train_ds, test_ds, pp_train, _, info = imagenet_app.prepare_data(
+            cfg, args)
+        print(f"imagenet: decode {info['decode_s']:.3f}s, mean image "
+              f"{info['mean_s']:.3f}s for {len(train_ds)} images; "
+              f"preprocessing route {info['route']} [{card}]", flush=True)
+        spec = resolve_spec(cfg, data=(batch, 3, crop, crop),
+                            label=(batch, 1))
+        want = prepare_round_batches(
+            RoundSampler(train_ds, 1, batch, tau, seed=cfg.seed), 0, tau,
+            cfg.seed, pp_train, torch.bfloat16)
+        settings = {
+            "on": (dict(h2d_prefetch=True, donate_batches=True,
+                        collect_async=True), True),
+            "off": (dict(h2d_prefetch=False, donate_batches=False,
+                         collect_async=False), False)}
+        first = []
+
+        def capture(self, state, batches, rng, lr_scale=1.0):
+            out = orig_round(self, state, batches, rng, lr_scale)
+            if not first:
+                # synchronous copies: the round's slot is not reused yet
+                first.append({k: (v.cpu() if isinstance(v, torch.Tensor)
+                                  else torch.from_numpy(np.asarray(v)))
+                              for k, v in batches.items()})
+            return out
+
+        ParallelTrainer.train_round = capture
+        ref = None
+        order = [("on", "off") if i % 2 == 0 else ("off", "on")
+                 for i in range(pairs)]
+        for i, (a, b) in enumerate(order):
+            for name in (a, b):
+                levers, prefetch = settings[name]
+                label = f"{name} {i}"
+                run_cfg = dataclasses.replace(
+                    cfg, workdir=os.path.join(root, label.replace(" ", "_")),
+                    **levers)
+                log = _capture_logger()
+                first.clear()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                _zero_counts()
+                t0 = time.perf_counter()
+                state = train(run_cfg, spec, train_ds, None, logger=log,
+                              batch_transform=pp_train, device=device,
+                              prefetch=prefetch)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _read_counts()
+                launches[label], steps_of[label] = counts, rounds * tau
+                recs = [x for x in log.records if "loss" in x]
+                if len(recs) != rounds or not all(
+                        x["loss"] is not None and math.isfinite(x["loss"])
+                        and x.get("nonfinite") == 0 for x in recs):
+                    fail(f"imagenet[{label}]: round records {recs}")
+                for x in recs:
+                    print(f"imagenet[{label}]: round {x['round']} loss "
+                          f"{x['loss']:.6f} round_s {x['round_s']:.4f} "
+                          f"data {x['t_data_ms']:.2f} h2d "
+                          f"{x['t_h2d_ms']:.2f} round {x['t_round_ms']:.2f} "
+                          f"collect {x['t_collect_ms']:.2f} collect_bg "
+                          f"{x.get('t_collect_bg_ms', 0.0):.2f} prep "
+                          f"{x['t_prep_ms']:.2f} ms; h2d_bytes "
+                          f"{int(x['h2d_bytes'])} [{card}]", flush=True)
+                warm = recs[1:]
+                ms = {k: [x[k] for x in warm if k in x] for k in (
+                    "t_data_ms", "t_h2d_ms", "t_round_ms", "t_collect_ms",
+                    "t_collect_bg_ms", "t_prep_ms")}
+                rs = [x["round_s"] for x in warm]
+                # what a round costs the loop: its own time and the wait
+                # for round prep before it
+                period = [x["round_s"] + x["t_data_ms"] / 1e3 for x in warm]
+                print(f"imagenet[{label}]: levers {levers} prep thread "
+                      f"{'on' if prefetch else 'off'}; {rounds} rounds in "
+                      f"{wall:.2f}s wall; warm rounds: round_s "
+                      f"{_stats(rs)}, "
+                      + ", ".join(f"{k} {_stats(v)}" for k, v in ms.items())
+                      + f"; {tau * batch / statistics.median(rs):.1f} img/s "
+                      f"a round, {tau * batch / statistics.median(period):.1f}"
+                      f" img/s a round and its data wait (median); route "
+                      f"{info['route']}; launches "
+                      f"{counts} [{card}]", flush=True)
+                if kernels:
+                    steps = rounds * tau
+                    _expect_counts(f"imagenet {label}", counts, {
+                        "lrn_fwd": 2 * steps, "lrn_fwd_scale": 0,
+                        "lrn_bwd": 2 * steps, "maxpool_bwd": 3 * steps})
+                got = first[0]
+                bad = [k for k in want if not torch.equal(
+                    got[k].reshape(-1), torch.as_tensor(
+                        np.asarray(want[k]) if not isinstance(
+                            want[k], torch.Tensor) else want[k]).reshape(-1))
+                    or tuple(got[k].shape) != tuple(want[k].shape)]
+                if bad:
+                    fail(f"imagenet[{label}]: the first round's {bad} "
+                         f"differ from prepare_round_batches on the host")
+                mine = ([x["loss"] for x in recs],
+                        state.flat_params.detach().clone())
+                if ref is None:
+                    ref = mine
+                elif mine[0] != ref[0] or not torch.equal(mine[1], ref[1]):
+                    fail(f"imagenet[{label}]: losses {mine[0]} or final "
+                         f"params differ from the first run's {ref[0]}")
+                del state
+        print(f"imagenet: every run's losses and final flat params are "
+              f"equal (torch.equal), and each run's first round equals "
+              f"prepare_round_batches on the host [{card}]", flush=True)
+    finally:
+        ParallelTrainer.train_round = orig_round
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "steps": steps_of}
+
+
 def profile_step(net, params, batch, solver_cfg, card: str,
                  top: int = 14) -> None:
     """One training step (forward, autograd, SGD update) at the main
@@ -1296,6 +1534,7 @@ def main() -> None:
     serve = phase_serve(card)
     train = phase_train(card)
     ckp = phase_checkpoint(card)
+    inet = phase_imagenet(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -1321,6 +1560,8 @@ def main() -> None:
          "launches": train["launches"]["lrn_fwd"],
          "checkpoint_phase_launches": {
              k: c["lrn_fwd"] for k, c in ckp["launches"].items()},
+         "imagenet_phase_launches": {
+             k: c["lrn_fwd"] for k, c in inet["launches"].items()},
          "max_abs_err": max(agg["max_abs_err"], lrn_train["max_abs_err"]),
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
@@ -1340,6 +1581,8 @@ def main() -> None:
          "launches": train["launches"]["lrn_bwd"],
          "checkpoint_phase_launches": {
              k: c["lrn_bwd"] for k, c in ckp["launches"].items()},
+         "imagenet_phase_launches": {
+             k: c["lrn_bwd"] for k, c in inet["launches"].items()},
          "max_abs_err": lrn_train["max_abs_err"], **bwd,
          "timed_at": "norm1 + norm2, batch 256, bfloat16, recompute mode",
          "saved_scale_route_launches": train["saved_launches"]["lrn_bwd"],
@@ -1352,6 +1595,8 @@ def main() -> None:
          "launches": train["launches"]["maxpool_bwd"],
          "checkpoint_phase_launches": {
              k: c["maxpool_bwd"] for k, c in ckp["launches"].items()},
+         "imagenet_phase_launches": {
+             k: c["maxpool_bwd"] for k, c in inet["launches"].items()},
          "max_abs_err": pool["max_abs_err"], **mp["ties"],
          "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
                      "tie-heavy input",
@@ -1359,7 +1604,8 @@ def main() -> None:
          "dense_timed_at": "the same, ReLU-of-Gaussian input",
          **common}],
         "train_steps": train["steps"],
-        "checkpoint_phase_steps": ckp["steps"]}), flush=True)
+        "checkpoint_phase_steps": ckp["steps"],
+        "imagenet_phase_steps": inet["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -22,6 +22,29 @@ each rank of the data group:
 The scalars of a round (mean loss, grad norm, the nonfinite rows and flag)
 are one small all-reduce after the param average.
 
+Placement (`place_batches`, the H2D half of a round; the JAX package's
+l.809-889). A round's host arrays are cast to the compute dtype, staged in
+pinned host memory and copied with `non_blocking=True` on a copy stream of
+the trainer's own; an event recorded after the copies is what the compute
+stream waits on before the round's first step reads the batch. So the train
+loop's round-prep thread can place round R+1 while round R computes, and
+`train_round` takes either host arrays (placed inline) or a
+`PlacedBatches`. Buffer lifetimes across the two streams:
+  - pinned staging buffers come from PyTorch's pinned-memory cache, which
+    keeps a block until the copy that read it has completed;
+  - `donate_batches=True` (the JAX package's buffer donation): placed
+    rounds rotate through two device slots. Round R+1 is copied into the
+    slot round R-1 used, after the copy stream has waited on the event
+    the compute stream recorded when round R-1's last step was queued; the
+    slot of round R is untouched while round R runs;
+  - `donate_batches=False`: each round gets fresh device buffers,
+    allocated on the copy stream and marked (`record_stream`) as used by
+    the compute stream, so the caching allocator cannot hand them to a
+    later copy while round R still reads them.
+With a `phase_timers` installed (the train loop's, under telemetry) a round
+splits its wall time into "h2d" (placement; a pass-through for a placed
+round) and "dispatch" (queueing the τ steps and the average).
+
 At the checkpoint boundary (`checkpoint_tree` / `state_from_checkpoint`)
 the state takes the JAX package's replica layout: every leaf has a leading
 [world] axis, params in the JAX layouts (conv HWIO, inner product (in,
@@ -35,6 +58,7 @@ any of them raises NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -79,6 +103,22 @@ def _flat_tree(tree: ParamTree, dtype: torch.dtype, device: torch.device,
     return flat, views
 
 
+class PlacedBatches(dict):
+    """One round's batches on the trainer's device, as `place_batches`
+    returns them: {input: [tau, local_batch, ...] tensor}, float inputs in
+    the compute dtype. `ready` is the CUDA event recorded on the copy
+    stream after the copies (None on the CPU), `slot` the device slot the
+    round occupies under `donate_batches` (else None), `nbytes` the bytes
+    copied to the device."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], ready=None,
+                 slot: Optional[int] = None, nbytes: int = 0):
+        super().__init__(tensors)
+        self.ready = ready
+        self.slot = slot
+        self.nbytes = nbytes
+
+
 class ParallelTrainer:
     """τ-round data-parallel trainer over a `DataGroup`.
 
@@ -90,7 +130,8 @@ class ParallelTrainer:
                  group: DataGroup, tau: int = 10, mode: str = "local_sgd",
                  loss_blob: str = "loss", acc_blob: Optional[str] = None,
                  compute_health: bool = True, elastic_tau: bool = False,
-                 tp: int = 1, ops: Optional[OpsImpl] = None):
+                 tp: int = 1, ops: Optional[OpsImpl] = None,
+                 donate_batches: bool = False):
         if mode not in ("local_sgd", "sync_sgd"):
             raise ValueError(f"unknown mode {mode!r}: expected 'local_sgd' "
                              f"or 'sync_sgd'")
@@ -117,8 +158,21 @@ class ParallelTrainer:
         self.compute_health = bool(compute_health)
         self.ops = ops or OpsImpl()
         #: {"grad_norm", "nonfinite", "nonfinite_by_worker"} of the last
-        #: round as device tensors (None when compute_health is off)
+        #: round as device tensors, fresh each round (None when
+        #: compute_health is off)
         self.last_health: Optional[Dict[str, torch.Tensor]] = None
+        self.donate_batches = bool(donate_batches)
+        #: optional PhaseTimers: train_round then times "h2d" and "dispatch"
+        self.phase_timers = None
+        # placement state (CUDA): the copy stream, the two donated slots
+        # ({input: tensor} each) and the event that frees each one
+        self._copy_stream = None
+        self._slots = [None, None]
+        self._slot_free = [None, None]
+        self._next_slot = 0
+        self._place_lock = threading.Lock()
+        #: bytes the last round copied to the device (0 on the CPU)
+        self.h2d_bytes = 0
 
     # -- state ---------------------------------------------------------------
 
@@ -253,41 +307,163 @@ class ParallelTrainer:
 
     # -- one round -----------------------------------------------------------
 
-    def place_batches(self, batches: Mapping[str, np.ndarray]
-                      ) -> Dict[str, torch.Tensor]:
-        """This rank's [tau, local_batch, ...] host arrays on the device:
-        float inputs in the compute dtype (the JAX package's
-        `cast_host_inputs`), the rest in the net's declared dtype."""
-        for name, arr in batches.items():
-            if arr.shape[0] != self.tau:
-                raise ValueError(f"{name}: leading dim {arr.shape[0]} != "
-                                 f"tau {self.tau}")
-        return self._to_device(batches)
+    def place_batches(self, batches: Mapping[str, Any],
+                      compute_dt: Optional[torch.dtype] = None
+                      ) -> PlacedBatches:
+        """This rank's [tau, local_batch, ...] batches on the device (see
+        the module docstring). Float inputs take the compute dtype
+        `compute_dt` (pass it from a thread other than the one that set
+        the policy: the policy is thread-local), the rest their declared
+        dtype. A `PlacedBatches` passes through. A tensor already on a
+        device (on the CPU trainer: any tensor) counts as placed and must
+        already have this trainer's device, dtype and shape: a mismatch
+        raises ValueError rather than being fixed by a hidden copy."""
+        if isinstance(batches, PlacedBatches):
+            return batches
+        dt = compute_dt if compute_dt is not None \
+            else precision.compute_dtype()
+        host = precision.cast_host_inputs(
+            {k: v for k, v in batches.items()
+             if not isinstance(v, torch.Tensor) or v.device.type == "cpu"},
+            dt)
+        placed: Dict[str, torch.Tensor] = {}
+        todo: Dict[str, Tuple[torch.Tensor, torch.dtype]] = {}
+        for name, decl in self.net.input_dtypes.items():
+            if name not in batches:
+                raise ValueError(f"batch missing net input {name!r}")
+            want = dt if decl == "float32" else precision.DTYPES[decl]
+            v = batches[name]
+            if isinstance(v, torch.Tensor) and (
+                    v.device.type != "cpu" or self.device.type == "cpu"):
+                self._check_placed(name, v, want)
+                placed[name] = v
+                continue
+            v = host[name]
+            t = v if isinstance(v, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(v))
+            if t.ndim == 0 or t.shape[0] != self.tau:
+                raise ValueError(f"{name}: leading dim "
+                                 f"{tuple(t.shape)[:1]} != tau {self.tau}")
+            todo[name] = (t, want)
+        if self.device.type == "cpu":
+            placed.update({k: t.to(want) for k, (t, want) in todo.items()})
+            return PlacedBatches(placed)
+        if not todo:
+            return PlacedBatches(placed)
+        return self._copy_to_device(placed, todo)
 
-    def _to_device(self, batch: Mapping[str, np.ndarray]
+    def _check_placed(self, name: str, t: torch.Tensor,
+                      want: torch.dtype) -> None:
+        if t.device != self.device:
+            raise ValueError(f"{name}: placed tensor is on {t.device}, the "
+                             f"trainer on {self.device}; pass host arrays "
+                             f"or place them with place_batches")
+        if t.dtype != want:
+            raise ValueError(f"{name}: placed tensor has dtype {t.dtype}, "
+                             f"but the compute dtype is {want}: place via "
+                             f"place_batches (it casts), or cast first")
+        if t.ndim == 0 or t.shape[0] != self.tau:
+            raise ValueError(f"{name}: leading dim {tuple(t.shape)[:1]} != "
+                             f"tau {self.tau}")
+
+    def _copy_to_device(self, placed: Dict[str, torch.Tensor],
+                        todo: Dict[str, Tuple[torch.Tensor, torch.dtype]]
+                        ) -> PlacedBatches:
+        """Pinned staging, then async copies on the copy stream into the
+        next donated slot or fresh buffers; an input whose host dtype is
+        not the one the net takes (int8 pixels) crosses in its own dtype
+        and is cast on the card. Returns the round with the event the
+        compute stream waits on."""
+        with self._place_lock, torch.cuda.device(self.device):
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            stream = self._copy_stream
+            slot = None
+            if self.donate_batches:
+                slot = self._next_slot
+                self._next_slot ^= 1
+                if self._slot_free[slot] is not None:
+                    # the round that last read this slot has been queued;
+                    # its copy waits for it on the device, not the host
+                    stream.wait_event(self._slot_free[slot])
+            nbytes = 0
+            with torch.cuda.stream(stream):
+                for name, (t, want) in todo.items():
+                    stage = torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                    if not stage.is_pinned():
+                        raise RuntimeError(f"{name}: pinned staging "
+                                           f"failed; refusing a pageable "
+                                           f"copy")
+                    stage.copy_(t)
+                    nbytes += stage.numel() * stage.element_size()
+                    dev = None
+                    if slot is not None:
+                        cur = (self._slots[slot] or {}).get(name)
+                        if cur is not None and cur.shape == t.shape and \
+                                cur.dtype == want:
+                            dev = cur
+                    if dev is None:
+                        dev = torch.empty(t.shape, dtype=want,
+                                          device=self.device)
+                        if slot is not None:
+                            self._slots[slot] = dict(self._slots[slot] or {},
+                                                     **{name: dev})
+                    if t.dtype == want:
+                        dev.copy_(stage, non_blocking=True)
+                    else:
+                        dev.copy_(stage.to(self.device, non_blocking=True))
+                    placed[name] = dev
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            return PlacedBatches(placed, ready=ready, slot=slot,
+                                 nbytes=nbytes)
+
+    def _to_device(self, batch: Mapping[str, Any]
                    ) -> Dict[str, torch.Tensor]:
+        """One (eval) batch on the device, synchronously: float inputs in
+        the compute dtype, the rest in the net's declared dtype."""
         out = {}
         for name, dt in self.net.input_dtypes.items():
             if name not in batch:
                 raise ValueError(f"batch missing net input {name!r}")
-            t = torch.as_tensor(np.ascontiguousarray(batch[name])).to(
-                self.device)
-            out[name] = t.to(precision.compute_dtype() if dt == "float32"
-                             else precision.DTYPES[dt])
+            v = batch[name]
+            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                np.ascontiguousarray(v))
+            out[name] = t.to(self.device).to(
+                precision.compute_dtype() if dt == "float32"
+                else precision.DTYPES[dt])
         return out
 
-    def train_round(self, state: TrainState,
-                    batches: Mapping[str, np.ndarray],
+    def train_round(self, state: TrainState, batches: Mapping[str, Any],
                     rng: Union[int, Sequence[int]], lr_scale: float = 1.0
                     ) -> Tuple[TrainState, torch.Tensor]:
         """One outer round on this rank: τ local steps on its own
-        [tau, local_batch, ...] batches, then the average. `rng` keys the
-        round (the loop passes (seed, round)); step t draws its dropout
-        masks from (rng..., rank, t). Returns (state, mean loss) — the
-        state updated in place; the health scalars land in `last_health`.
-        """
+        [tau, local_batch, ...] batches (host arrays, or a round placed by
+        `place_batches`), then the average. `rng` keys the round (the loop
+        passes (seed, round)); step t draws its dropout masks from
+        (rng..., rank, t). Returns (state, mean loss) — the state updated
+        in place; the health scalars land in `last_health`. On the card
+        the call returns once the round is queued."""
+        timers = self.phase_timers
+        if timers is None:
+            placed = self.place_batches(batches)
+            return self._round(state, placed, rng, lr_scale)
+        with timers.phase("h2d"):
+            placed = self.place_batches(batches)
+        with timers.phase("dispatch"):
+            return self._round(state, placed, rng, lr_scale)
+
+    def _round(self, state: TrainState, placed: PlacedBatches,
+               rng: Union[int, Sequence[int]], lr_scale: float
+               ) -> Tuple[TrainState, torch.Tensor]:
         keys = (rng,) if isinstance(rng, int) else tuple(rng)
-        placed = self.place_batches(batches)
+        self.h2d_bytes = placed.nbytes
+        if placed.ready is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(placed.ready)
+            for t in placed.values():
+                t.record_stream(compute)
         loss_fn = self.net.loss_fn(self.loss_blob, ops=self.ops)
         sstate = SolverState(momentum=state.momentum, it=state.it)
         g = self.group
@@ -329,6 +505,10 @@ class ParallelTrainer:
                           (~finite_avg).float()[None]]
             scalars = g.all_reduce_sum_(torch.cat(parts))
         mean_loss = scalars[0] / g.size
+        if placed.slot is not None:
+            free = torch.cuda.Event()
+            free.record(torch.cuda.current_stream(self.device))
+            self._slot_free[placed.slot] = free
         self.last_health = None
         if self.compute_health:
             by_worker = scalars[2:2 + g.size]

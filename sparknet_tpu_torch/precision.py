@@ -11,12 +11,17 @@ Two modes, as in `sparknet_tpu/precision.py`:
 
 The mode is thread-local (set_policy / policy(...)); the backend flags are
 process-wide, so they are re-applied at the start of every f32 forward.
+`cast_host_inputs` is the host-side cast of a round's float inputs to the
+compute dtype, run on the round-prep thread: that thread reads no policy,
+so its caller reads `compute_dtype()` on the main thread and passes it in.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 _state = threading.local()
@@ -65,3 +70,27 @@ def cast_in(x: torch.Tensor) -> torch.Tensor:
     if x.dtype in (torch.float32, torch.bfloat16) and x.dtype != dt:
         return x.to(dt)
     return x
+
+
+def cast_host_inputs(batch: Dict[str, Any], dt: Optional[torch.dtype] = None
+                     ) -> Dict[str, Any]:
+    """Cast the float32 HOST arrays of a batch to the compute dtype `dt`
+    (default: this thread's policy): value-identical to the first in-net
+    `cast_in` (round to nearest even), and half the host-to-device bytes
+    under bfloat16. A bfloat16 result is a CPU `torch.bfloat16` tensor
+    (numpy has no bfloat16); everything else, device tensors included,
+    passes through untouched. The counterpart of the JAX package's
+    `precision.cast_host_inputs`."""
+    dt = dt if dt is not None else compute_dtype()
+    if dt == torch.float32:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = (v.to(dt) if v.device.type == "cpu"
+                      and v.dtype == torch.float32 else v)
+        elif np.asarray(v).dtype == np.float32:
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(dt)
+        else:
+            out[k] = v
+    return out

@@ -152,14 +152,14 @@ class RunConfig:
     eval_batch: int = 1000
     # precision
     precision: str = "float32"          # or "bfloat16"
-    # round-pipeline overlap & fuse (the r6 MFU levers; each individually
-    # toggleable, each pinned bit-exact/parity by tests/test_round_pipeline):
-    # h2d_prefetch extends the one-deep host prefetch to also PLACE round
-    # R+1's batches on device (trainer.place_batches on the prefetch
-    # thread) while round R computes — t_h2d_ms in the step-time breakdown
-    # drops to ~0. donate_batches donates the [tau, global_batch, ...]
-    # buffers to the compiled round (two-slot rotation: R donated while
-    # R+1 places into fresh buffers), cutting peak HBM + allocator churn.
+    # round-pipeline overlap (each individually toggleable, each pinned
+    # bit-exact by tests/test_torch_pipeline.py): h2d_prefetch extends
+    # the one-deep round-prep thread to also PLACE round R+1's batches on
+    # the card (trainer.place_batches: pinned staging, a copy stream)
+    # while round R computes — t_h2d_ms in the step-time breakdown drops
+    # to ~0. donate_batches rotates placed rounds through two device
+    # slots (R+1 is copied into the slot R-1 used once R-1 is queued),
+    # instead of fresh buffers each round.
     # lrn_impl / pool_impl pick the kernel route in the layer path:
     # "auto" = the CUDA kernels for CUDA tensors (plain versions for CPU
     # tensors), "plain" = the plain PyTorch versions everywhere; validated
@@ -173,13 +173,9 @@ class RunConfig:
     # PyTorch does not have (ops/pooling.py)
     pool_impl: str = "auto"
     ops_interpret: bool = False
-    # the r8 gather-free boundary levers (each pinned bit-exact by
-    # tests/test_round_pipeline.py). fused_boundary peels the final τ
-    # step out of the compiled scan so the boundary pmean (+ the ZeRO
-    # momentum average/re-shard under the named trainer) traces in the
-    # same region as the last optimizer update — on TPU the rolled
-    # scan's loop boundary otherwise serializes the full-params
-    # all-reduce behind every local step. collect_async moves the
+    # fused_boundary is the JAX package's peeled final scan step; an
+    # eager round already averages right after its last step, so the
+    # port accepts it and logs it as not ported. collect_async moves the
     # deferred loss/health fetch onto a background collector thread so
     # the round loop NEVER blocks on boundary results: t_collect_ms in
     # the step-time breakdown reads ~0 (the off-thread fetch lands as

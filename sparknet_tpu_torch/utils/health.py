@@ -310,11 +310,20 @@ def poison_batch(batches: Dict[str, Any], mode: str,
     """Deterministically poison one round's prepared batch (fault-injection
     hook): float arrays get NaN ('nan') or a *scale blowup ('spike');
     integer arrays (labels) are left intact. Returns a new dict — the
-    original arrays are not mutated."""
+    original arrays are not mutated. A floating torch tensor (the port's
+    bfloat16 host batches) is poisoned too, where the JAX package leaves
+    its `ml_dtypes.bfloat16` arrays intact (numpy does not count them as
+    floating): ROADMAP C records the difference."""
     import numpy as np
+    import torch
 
     out = {}
     for k, v in batches.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = (v if not v.is_floating_point()
+                      else torch.full_like(v, float("nan")) if mode == "nan"
+                      else v * scale)
+            continue
         a = np.asarray(v)
         if np.issubdtype(a.dtype, np.floating):
             out[k] = (np.full_like(a, np.nan) if mode == "nan"

@@ -1,22 +1,117 @@
-"""Serving meters, registry-backed: request-latency quantiles and the
-dynamic batcher's fill ratio.
+"""Meters, registry-backed: the train loop's phase timers and throughput
+meter, and the server's request-latency quantiles and batch fill ratio.
 
-A copy of `LatencyStats` and `FillMeter` from `sparknet_tpu/utils/metrics.py`
-(pure Python), the two meters the port's inference server needs. Constructed
-with a registry they also register the shared-schema metrics
-(sparknet_serve_request_latency_seconds, sparknet_serve_batch_*) and update
-them on every mutation. They carry their own locks: `summary()` /
-`snapshot()` readers get a CONSISTENT view of state the serve worker thread
-is mutating.
+A copy of `PhaseTimers`, `ThroughputMeter`, `LatencyStats` and `FillMeter`
+from `sparknet_tpu/utils/metrics.py` (pure Python). Constructed with a
+registry they also register the shared-schema metrics
+(sparknet_train_phase_seconds_total, sparknet_serve_request_latency_seconds,
+sparknet_serve_batch_*, ...) and update them on every mutation. They carry
+their own locks: `summary()` / `snapshot()` readers get a CONSISTENT view
+of state a worker thread is mutating. `PhaseTimers.phase(...)` also emits a host-side trace span (obs.trace).
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
+from ..obs import trace as _trace
 from ..obs.registry import MetricsRegistry
+
+
+class PhaseTimers:
+    """Accumulating named wall-clock spans (per-phase step breakdown).
+
+    With a registry, each phase exit also feeds the counters
+    `<prefix>_phase_seconds_total{phase=...}` and
+    `<prefix>_phase_count_total{phase=...}`; an active tracer gets the
+    phase as a span on the calling thread's lane."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 prefix: str = "sparknet_train"):
+        self.total: Dict[str, float] = {}
+        self.count: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._c_seconds = self._c_count = None
+        if registry is not None:
+            self._c_seconds = registry.counter(
+                f"{prefix}_phase_seconds_total",
+                "wall seconds accumulated per host-side phase",
+                labels=("phase",))
+            self._c_count = registry.counter(
+                f"{prefix}_phase_count_total",
+                "entries per host-side phase", labels=("phase",))
+
+    @contextmanager
+    def phase(self, name: str):
+        with _trace.span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self.total[name] = self.total.get(name, 0.0) + dt
+                    self.count[name] = self.count.get(name, 0) + 1
+                if self._c_seconds is not None:
+                    self._c_seconds.inc(dt, phase=name)
+                    self._c_count.inc(1, phase=name)
+
+    def mean(self, name: str) -> float:
+        with self._lock:
+            return self.total.get(name, 0.0) / max(self.count.get(name, 0),
+                                                   1)
+
+    def summary(self) -> Dict[str, float]:
+        with self._lock:
+            names = list(self.total)
+        return {f"{k}_mean_s": round(self.mean(k), 6) for k in names}
+
+    def reset(self) -> None:
+        with self._lock:
+            self.total.clear()
+            self.count.clear()
+
+
+class ThroughputMeter:
+    """images/sec (/chip if n_chips given), over a sliding accumulation."""
+
+    def __init__(self, n_chips: int = 1,
+                 registry: Optional[MetricsRegistry] = None,
+                 prefix: str = "sparknet_train"):
+        self.n_chips = n_chips
+        self.images = 0
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+        self._c_images = self._g_ips = None
+        if registry is not None:
+            self._c_images = registry.counter(
+                f"{prefix}_images_total", "examples trained/served")
+            self._g_ips = registry.gauge(
+                f"{prefix}_images_per_sec_per_chip",
+                "throughput over the accumulation window")
+
+    def add(self, n_images: int, seconds: float) -> None:
+        with self._lock:
+            self.images += n_images
+            self.seconds += seconds
+        if self._c_images is not None:
+            self._c_images.inc(n_images)
+            self._g_ips.set(self.images_per_sec_per_chip())
+
+    def images_per_sec(self) -> float:
+        with self._lock:
+            return self.images / self.seconds if self.seconds else 0.0
+
+    def images_per_sec_per_chip(self) -> float:
+        return self.images_per_sec() / self.n_chips
+
+    def reset(self) -> None:
+        with self._lock:
+            self.images = 0
+            self.seconds = 0.0
 
 
 def _rank(xs, q: float) -> float:

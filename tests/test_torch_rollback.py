@@ -6,8 +6,9 @@ cifar10_quick at local batch 10, τ = 2, checkpoints every 2 rounds, on
 (as in `tests/test_torch_apps.py`, whose batch and loss tolerance these
 are). At local batch 4 the two packages' loss trajectories on this data
 part by more than 1e-4 from round 2 on, with or without the supervisor,
-while their gradients at one set of params agree to 1e-6; ROADMAP.md C
-keeps that open.
+while their gradients at one set of params agree to 1e-6: a MAX-pool
+near-tie routes differently after the first step (ROADMAP.md C;
+`test_torch_trainer.py::test_batch4_cifar_trajectories_part_at_a_max_pool_near_tie`).
 
 A NaN injected at round 3 must give, in both packages, one `rollback` event with the same reason, target step,
 retry, rollbacks and lr_scale; the retried rounds draw the same data
@@ -142,19 +143,32 @@ def test_a_nan_round_rolls_back_as_in_the_jax_package(cifar_dir, tmp_path,
         {"retry": 1, "lr_scale": 0.5, "rollbacks": 1}
 
 
-@pytest.mark.parametrize("retry,rnd", [(0, 3), (1, 3), (1, 2), (2, 5)])
-def test_the_retried_data_window_is_the_jax_packages(retry, rnd):
+class _Scale:
+    """A transform that draws from the round-keyed generator it is given."""
+
+    def convert_batch(self, batch, *, train=True, rng=None):
+        return {"data": batch["data"] * rng.uniform(0.5, 2.0,
+                                                    (1, 1, 1, 3)).astype(
+            np.float32), "label": batch["label"]}
+
+
+@pytest.mark.parametrize("retry,rnd,transform", [
+    pytest.param(0, 3, False, id="0-3"), pytest.param(1, 3, False, id="1-3"),
+    pytest.param(1, 2, False, id="1-2"), pytest.param(2, 5, False, id="2-5"),
+    pytest.param(1, 3, True, id="1-3-transform")])
+def test_the_retried_data_window_is_the_jax_packages(retry, rnd, transform):
     r = np.random.default_rng(0)
     arrays = {"data": r.standard_normal((40, 4, 4, 3)).astype(np.float32),
               "label": r.integers(0, 10, (40, 1)).astype(np.int32)}
     mine = RoundSampler(ArrayDataset(arrays), 2, 3, 2, seed=7)
     theirs = JaxRoundSampler(JaxArrayDataset(arrays), 2, 3, 2, seed=7)
+    tf = _Scale() if transform else None
     for first_pass in (True, False):
         got = prepare_round_batches(
-            mine, rnd, retry, HealthConfig(inject_nan_rounds=(3,)),
-            first_pass=first_pass)
+            mine, rnd, 2, 7, tf, torch.float32, retry,
+            HealthConfig(inject_nan_rounds=(3,)), first_pass=first_pass)
         want = jax_prepare_round_batches(
-            theirs, rnd, 2, 7, None, jax_precision.compute_dtype(), retry,
+            theirs, rnd, 2, 7, tf, jax_precision.compute_dtype(), retry,
             JaxHealthConfig(inject_nan_rounds=(3,)), first_pass=first_pass)
         assert sorted(got) == sorted(want)
         for k in got:

@@ -222,3 +222,97 @@ def test_unported_trainer_options_raise(tmp_path):
     with pytest.raises(ValueError, match="MASTER_ADDR"):
         os.environ.pop("MASTER_ADDR", None)
         init_data_group("cpu", rank=0, world_size=2)
+
+
+def test_batch4_cifar_trajectories_part_at_a_max_pool_near_tie(tmp_path):
+    """Why the two packages' cifar10_quick trajectories part at local
+    batch 4 (ROADMAP C): not a different function but a routing flip.
+
+    The loop's data (`cifar.write_synthetic(n_per_file=100)`, the
+    RoundSampler of `train()` at batch 4, τ = 2), stepped one solver step
+    at a time from the JAX package's init. After step 0 the packages'
+    params agree to 1e-6 (convolution sums run in another order). At step
+    1, from the SAME params (the JAX package's), the two gradients agree
+    to 1e-6 per tensor: the same function. But the port's gradient at its
+    own step-0 params parts from its gradient at the JAX package's by
+    more than 1e-3 in conv1/w, because pool1's first-max routing flips in
+    a window whose two largest inputs differ by less than 1e-6: a near-tie
+    that the 1e-7-scale difference in conv1's output reorders."""
+    import torch.nn.functional as F
+
+    from sparknet_tpu.apps import cifar_app as jax_cifar_app
+    from sparknet_tpu.apps.train_loop import resolve_spec as jax_resolve
+    from sparknet_tpu_torch.apps import cifar_app
+    from sparknet_tpu_torch.apps.train_loop import (_to_device_layout,
+                                                    resolve_spec)
+    from sparknet_tpu_torch.data.cifar import write_synthetic
+    from sparknet_tpu_torch.data.dataset import RoundSampler
+    from sparknet_tpu_torch.solver import value_and_grad
+
+    write_synthetic(str(tmp_path), n_per_file=100)
+    ov = ("tau=1", "local_batch=4", f"data_dir={tmp_path}")
+    jcfg = jax_cifar_app.default_config().with_overrides(*ov)
+    tcfg = cifar_app.default_config().with_overrides(*ov)
+    shapes = dict(data=(4, 3, 32, 32), label=(4, 1))
+    jnet = JaxCompiledNet.compile(jax_resolve(jcfg, **shapes))
+    tnet = CompiledNet.compile(resolve_spec(tcfg, **shapes))
+    ds = _to_device_layout(cifar_app.build_datasets(tcfg)[0], tnet)
+    rnd0 = RoundSampler(ds, 1, 4, 2, seed=0).next_round(0)
+    step0 = {k: v[:1] for k, v in rnd0.items()}
+    step1 = {k: v[1] for k, v in rnd0.items()}
+    jp = jax_params(jnet)
+
+    jt = JaxTrainer(jnet, jcfg.solver, make_mesh(1), tau=1)
+    js, _ = jt.train_round(jt.state_from_params(
+        jax.tree_util.tree_map(jnp.asarray, jp)), step0,
+        jax.random.PRNGKey(0))
+    jax_p1 = jax.tree_util.tree_map(np.asarray, jt.averaged_params(js))
+    g = init_data_group("cpu", store_path=str(tmp_path / "s"), rank=0,
+                        world_size=1)
+    try:
+        tt = ParallelTrainer(tnet, tcfg.solver, g, tau=1)
+        ts, _ = tt.train_round(tt.state_from_params(
+            params_from_jax(tnet, jp, torch.device("cpu"))), step0, (0, 0))
+        port_p1 = params_to_jax(tnet, ts.params)
+    finally:
+        g.close()
+    for l in jax_p1:
+        for p in jax_p1[l]:
+            w = jax_p1[l][p]
+            assert np.abs(port_p1[l][p] - w).max() <= 1e-6 * np.abs(w).max()
+
+    tb = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in step1.items()}
+
+    def port_step1(params_jax):
+        tp = params_from_jax(tnet, params_jax, torch.device("cpu"))
+        for lp in tp.values():
+            for w in lp.values():
+                w.requires_grad_(True)
+        _, grads = value_and_grad(tnet.loss_fn("loss"), tp, tb)
+        with torch.no_grad():
+            conv1 = tnet.apply(tp, tb, train=True)["conv1"].contiguous()
+        return params_to_jax(tnet, grads), conv1
+
+    (_, _), jg = jax.value_and_grad(jnet.loss_fn("loss"), has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, jax_p1),
+        {k: jnp.asarray(v) for k, v in step1.items()})
+    at_jax, conv_a = port_step1(jax_p1)
+    at_port, conv_b = port_step1(port_p1)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    for l in jg:
+        for p in jg[l]:
+            assert rel(at_jax[l][p], np.asarray(jg[l][p])) <= 1e-6, (l, p)
+    assert rel(at_port["conv1"]["w"], at_jax["conv1"]["w"]) > 1e-3
+    # pool1 (MAX 3x3, stride 2, ceil mode) routes differently in a near-tie
+    _, ia = F.max_pool2d(conv_a, 3, 2, ceil_mode=True, return_indices=True)
+    _, ib = F.max_pool2d(conv_b, 3, 2, ceil_mode=True, return_indices=True)
+    flips = (ia != ib).nonzero().tolist()
+    assert flips
+    for n, c, y, x in flips:
+        plane = conv_a[n, c].flatten()
+        gap = abs(float(plane[ia[n, c, y, x]] - plane[ib[n, c, y, x]]))
+        assert gap < 1e-6 * float(conv_a.abs().max()), (n, c, y, x, gap)
