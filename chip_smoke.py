@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: does the port serve and train
-CaffeNet on the card, through the ImageNet app from JPEG shards too?
+CaffeNet on the card, through the ImageNet app from JPEG shards too,
+cached and streamed, from a directory and from a bucket?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -108,11 +109,11 @@ Phases, in order; any failure exits non-zero before the result line:
      present, lrn_fwd / lrn_bwd / maxpool_bwd 2 / 2 / 3 per step plus
      lrn_fwd's 2 per eval forward.
    - `prepare_data` (the app's decode and mean image, timed), then the
-     same `train()` that `main()` calls on that data, 6 rounds a run:
+     same `train()` that `main()` calls on that data, 4 rounds a run:
      levers on (the defaults: the round-prep thread, h2d_prefetch,
      donate_batches, collect_async; log_every 1, telemetry on) and levers
      off (those three off and each round prepared on the main thread:
-     the synchronous loop), in 3 alternating pairs. Per round: loss,
+     the synchronous loop), in 2 alternating pairs. Per round: loss,
      round_s, the breakdown (t_data_ms, t_h2d_ms, t_round_ms,
      t_collect_ms / t_collect_bg_ms, the round prep's own t_prep_ms) and
      the H2D bytes; per run: their medians and ranges over the warm rounds,
@@ -122,7 +123,32 @@ Phases, in order; any failure exits non-zero before the result line:
      each run's first round, as `train_round` received it (placed on the
      card when the levers are on), torch.equal to `prepare_round_batches`
      on the host.
-7. The kernels line, `{"kernels": [...]}`, then the result line
+7. Stream: the same CaffeNet, solver, bfloat16, b256 and τ = 5 through
+   the ImageNet app's streaming ingest (`--stream always`,
+   `data/streaming.py`) on phase 6's corpus, in a world of one, with
+   cuDNN's deterministic algorithms:
+   - the app's own `main()`: one round and one evaluation, with
+     `checkpoint_dir` for the mean sidecar: the round's loss finite with
+     nonfinite 0, the eval line present, launches 2 / 2 / 3 per step plus
+     lrn_fwd's 2 per eval forward; the streamed mean image within 1
+     float32 ulp of phase 6's cached mean;
+   - resume through the stream cursor with `ingest_sources=2` (two shard
+     readers, shards j::2), `checkpoint_every=2` (async writes): 6 rounds
+     uninterrupted; 4 rounds, then a second `train()` that resumes to
+     round 6. Every param and momentum tensor and every loss equal
+     (`torch.equal`); step 4's `extra["stream"]` is the cursor after
+     round 4's data (both runs), not the prefetched round 5's; the
+     uninterrupted run's first round, as `train_round` received it on the
+     card, torch.equal to the host's `prepare_round_batches` on a fresh
+     source;
+   - the same shards served as `gs://` by `tests/fake_stores.py:
+     serve_dir_for_ingest` on localhost: two rounds' raw batches and
+     cursors equal the local stream's bit for bit; the uninterrupted
+     run's last step saved to `gs://` restores equal, tensor for tensor.
+   Prints per round loss, round_s, t_data_ms, t_prep_ms, img/s with the
+   data wait and the streaming thread's decode seconds; per run its
+   launches and the process's peak RSS; the stream cursor of every step.
+8. The kernels line, `{"kernels": [...]}`, then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -1234,14 +1260,34 @@ def _stats(xs) -> str:
             f"{max(xs):.3f}]")
 
 
-def phase_imagenet(card: str, device: str = "cuda", crop: int = 227,
-                   batch: int = 256, tau: int = 5, n_classes: int = 1000,
-                   size: int = 256, n_train: int = 2560, n_val: int = 256,
-                   shards: int = 8, pairs: int = 3, rounds: int = 6) -> dict:
-    """Full-width CaffeNet through the ImageNet app on synthetic JPEG
-    shards (module docstring, phase 6); returns each run's launch counts
-    and steps. The arguments let the phase be rehearsed on the CPU at a
-    small size (counts then 0)."""
+def write_corpus(data_dir: str, n_train: int = 2560, n_val: int = 256,
+                 shards: int = 8, size: int = 256,
+                 n_classes: int = 1000) -> None:
+    """The ImageNet phases' corpus (module docstring, phase 6): JPEG tar
+    shards of random pixels by `write_synthetic_shards` (PIL)."""
+    from sparknet_tpu_torch.data.imagenet import write_synthetic_shards
+
+    t0 = time.perf_counter()
+    write_synthetic_shards(data_dir, n_shards=shards,
+                           per_shard=n_train // shards,
+                           n_classes=n_classes, size=size, seed=0)
+    write_synthetic_shards(data_dir, n_shards=1, per_shard=n_val,
+                           n_classes=n_classes, size=size, seed=1,
+                           prefix="val")
+    print(f"imagenet: corpus of {n_train} train JPEGs in {shards} "
+          f"shards and {n_val} val JPEGs, {size}x{size}, written in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+
+def phase_imagenet(card: str, data_dir: str, device: str = "cuda",
+                   crop: int = 227, batch: int = 256, tau: int = 5,
+                   n_classes: int = 1000, n_val: int = 256, pairs: int = 2,
+                   rounds: int = 4) -> dict:
+    """Full-width CaffeNet through the ImageNet app on the JPEG shards of
+    `write_corpus` in `data_dir` (module docstring, phase 6); returns each
+    run's launch counts and steps, and the cached mean image. The
+    arguments let the phase be rehearsed on the CPU at a small size
+    (counts then 0)."""
     import argparse
     import dataclasses
     import glob
@@ -1255,7 +1301,6 @@ def phase_imagenet(card: str, device: str = "cuda", crop: int = 227,
     from sparknet_tpu_torch.apps.train_loop import (prepare_round_batches,
                                                     resolve_spec, train)
     from sparknet_tpu_torch.data.dataset import RoundSampler
-    from sparknet_tpu_torch.data.imagenet import write_synthetic_shards
     from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
 
     kernels = device == "cuda"
@@ -1267,17 +1312,6 @@ def phase_imagenet(card: str, device: str = "cuda", crop: int = 227,
     launches, steps_of = {}, {}
     orig_round = ParallelTrainer.train_round
     try:
-        data_dir = os.path.join(root, "data")
-        t0 = time.perf_counter()
-        write_synthetic_shards(data_dir, n_shards=shards,
-                               per_shard=n_train // shards,
-                               n_classes=n_classes, size=size, seed=0)
-        write_synthetic_shards(data_dir, n_shards=1, per_shard=n_val,
-                               n_classes=n_classes, size=size, seed=1,
-                               prefix="val")
-        print(f"imagenet: corpus of {n_train} train JPEGs in {shards} "
-              f"shards and {n_val} val JPEGs, {size}x{size}, written in "
-              f"{time.perf_counter() - t0:.2f}s", flush=True)
         common = [f"n_classes={n_classes}", f"crop={crop}",
                   f"local_batch={batch}", f"tau={tau}", "seed=0"]
         dev_args = ["--device", "cpu"] if device == "cpu" else []
@@ -1437,6 +1471,300 @@ def phase_imagenet(card: str, device: str = "cuda", crop: int = 227,
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
             det
         shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "steps": steps_of,
+            "mean": pp_train.mean_image}
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in float32 ulps between two float32 arrays of
+    one sign (pixel means are positive)."""
+    import numpy as np
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max())
+
+
+def _rss_mib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def _as_tensor(v):
+    import numpy as np
+    import torch
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.asarray(v))
+
+
+def phase_stream(card: str, data_dir: str, cached_mean=None,
+                 device: str = "cuda", crop: int = 227, batch: int = 256,
+                 tau: int = 5, n_classes: int = 1000, n_val: int = 256,
+                 rounds: int = 6, resume_at: int = 4,
+                 bucket_rounds: int = 2) -> dict:
+    """Full-width CaffeNet through the ImageNet app's streaming ingest on
+    phase 6's corpus (module docstring, phase 7); returns each run's
+    launch counts and steps. The arguments let the phase be rehearsed on
+    the CPU at a small size (counts then 0)."""
+    import argparse
+    import dataclasses
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.apps.train_loop import (prepare_round_batches,
+                                                    resolve_spec, train)
+    from sparknet_tpu_torch.data import imagenet
+    from sparknet_tpu_torch.data.streaming import StreamingRoundSource
+    from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+
+    kernels = device == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    # the resumed run must be bit-equal to the uninterrupted one
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    launches, steps_of = {}, {}
+    orig_round = ParallelTrainer.train_round
+    common = [f"n_classes={n_classes}", f"crop={crop}",
+              f"local_batch={batch}", f"tau={tau}", "seed=0"]
+    per_round = tau * batch
+    n_train = len(imagenet.ShardedTarLoader(
+        imagenet.list_shards(data_dir, "train."),
+        imagenet.load_label_map(os.path.join(data_dir, "train.txt")))
+        .label_map)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def round_lines(label, recs, decode=None):
+        for i, x in enumerate(recs):
+            period = x["round_s"] + x["t_data_ms"] / 1e3
+            dec = (f" decode {decode[i]:.3f}s on the streaming thread"
+                   if decode and i < len(decode) else "")
+            print(f"stream[{label}]: round {x['round']} loss "
+                  f"{x['loss']:.6f} round_s {x['round_s']:.4f} t_data_ms "
+                  f"{x['t_data_ms']:.2f} t_prep_ms {x['t_prep_ms']:.2f} "
+                  f"{per_round / period:.1f} img/s with the data wait"
+                  f"{dec} [{card}]", flush=True)
+        bad = [x for x in recs if x["loss"] is None
+               or not math.isfinite(x["loss"]) or x.get("nonfinite") != 0]
+        if bad:
+            fail(f"stream[{label}]: round records {bad}")
+
+    try:
+        dev_args = ["--device", "cpu"] if device == "cpu" else []
+        # 1. the app's own main(), streaming: one round and one evaluation
+        work, ck_main = os.path.join(root, "main"), os.path.join(root, "ckm")
+        _zero_counts()
+        t0 = time.perf_counter()
+        imagenet_app.main(["--data-dir", data_dir, "--stream", "always",
+                           *dev_args, *common, f"workdir={work}",
+                           "max_rounds=1", "eval_every=1",
+                           f"checkpoint_dir={ck_main}", "checkpoint_every=0"])
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        (jsonl,) = glob.glob(os.path.join(work, "training_metrics_*.jsonl"))
+        recs = [json.loads(line) for line in open(jsonl)]
+        losses = [dict(x, round=x["step"]) for x in recs if "loss" in x]
+        accs = [x for x in recs if "test_accuracy" in x]
+        round_lines("main", losses)
+        with np.load(os.path.join(ck_main, "mean_image.npz")) as z:
+            mean = z["mean"]
+        ulps = _ulps(mean, cached_mean) if cached_mean is not None else None
+        print(f"stream[main]: {len(losses)} round in {wall:.2f}s wall "
+              f"(the streamed mean pass and set-up included), test accuracy "
+              f"{[x['test_accuracy'] for x in accs]}, launches {counts}; "
+              f"streamed mean image vs phase 6's cached mean: {ulps} "
+              f"float32 ulp at most; peak RSS {_rss_mib():.0f} MiB (the "
+              f"process so far) [{card}]", flush=True)
+        if len(losses) != 1 or len(accs) != 1:
+            fail(f"stream[main]: records {recs}")
+        if ulps is not None and ulps > 1:
+            fail(f"stream[main]: the streamed mean image is {ulps} ulp from "
+                 f"the cached one (limit 1)")
+        evals = -(-n_val // min(1000, n_val))  # eval_batch 1000
+        launches["main"], steps_of["main"] = counts, tau
+        if kernels:
+            _expect_counts("stream main", counts, {
+                "lrn_fwd": 2 * tau + 2 * evals, "lrn_fwd_scale": 0,
+                "lrn_bwd": 2 * tau, "maxpool_bwd": 3 * tau})
+        shutil.rmtree(os.path.join(ck_main, "step-1"), ignore_errors=True)
+
+        # 2. resume through the stream cursor
+        p = argparse.ArgumentParser()
+        imagenet_app.add_data_args(p)
+        args = p.parse_args(["--data-dir", data_dir, "--stream", "always"])
+        cfg = imagenet_app.default_config().with_overrides(
+            *common, f"data_dir={data_dir}", "eval_every=0", "log_every=1",
+            "telemetry=true", "checkpoint_every=2")
+        spec = resolve_spec(cfg, data=(batch, 3, crop, crop),
+                            label=(batch, 1))
+        first = []
+
+        def stream_run(label, max_rounds, ckdir=None, ingest=2):
+            if ckdir:  # the mean sidecar: no second corpus pass
+                os.makedirs(ckdir, exist_ok=True)
+                shutil.copy(os.path.join(ck_main, "mean_image.npz"), ckdir)
+            run_cfg = dataclasses.replace(
+                cfg, workdir=os.path.join(root, label),
+                max_rounds=max_rounds, checkpoint_dir=ckdir,
+                ingest_sources=ingest)
+            src, _, pp, _, _ = imagenet_app.prepare_data(run_cfg, args)
+            loaders = getattr(src, "loaders", None) or [src.loader]
+            dec_at = []
+
+            def capture(self, state, batches, rng, lr_scale=1.0):
+                dec_at.append(sum(ld.decode_s for ld in loaders))
+                out = orig_round(self, state, batches, rng, lr_scale)
+                if not first:
+                    first.append({k: _as_tensor(v).cpu()
+                                  for k, v in batches.items()})
+                return out
+
+            ParallelTrainer.train_round = capture
+            log = _capture_logger()
+            first.clear()
+            sync()
+            _zero_counts()
+            t0 = time.perf_counter()
+            try:
+                state = train(run_cfg, spec, src, None, logger=log,
+                              batch_transform=pp, device=device)
+            finally:
+                ParallelTrainer.train_round = orig_round
+                src.close()
+            sync()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+            recs = [x for x in log.records if "loss" in x]
+            decode = [b - a for a, b in zip([0.0] + dec_at, dec_at)]
+            round_lines(label, recs, decode)
+            n_steps = len(recs) * tau
+            launches[label], steps_of[label] = counts, n_steps
+            print(f"stream[{label}]: {len(recs)} rounds in {wall:.2f}s wall, "
+                  f"{len(loaders)} reader(s), decode "
+                  f"{sum(ld.decode_s for ld in loaders):.2f}s in all on the "
+                  f"streaming thread(s), launches {counts}; peak RSS "
+                  f"{_rss_mib():.0f} MiB [{card}]", flush=True)
+            if kernels:
+                _expect_counts(f"stream {label}", counts, {
+                    "lrn_fwd": 2 * n_steps, "lrn_fwd_scale": 0,
+                    "lrn_bwd": 2 * n_steps, "maxpool_bwd": 3 * n_steps})
+            return state, recs, pp
+
+        ck_full, ck_part = (os.path.join(root, "ck_full"),
+                            os.path.join(root, "ck_part"))
+        full, full_recs, _ = stream_run("full", rounds, ck_full)
+        got = first[0]  # the first round as train_round received it
+        _, part_recs, _ = stream_run("part", resume_at, ck_part)
+        resumed, res_recs, _ = stream_run("resumed", rounds, ck_part)
+        for name, d in (("full", ck_full), ("part", ck_part)):
+            for step in ckpt._list_steps(d):
+                extra = ckpt.restore_flat(d, step=step)[2]
+                print(f"stream[{name}]: step {step} stream cursor "
+                      f"{extra.get('stream')} [{card}]", flush=True)
+        # the cursor after round resume_at's data, per reader (shards
+        # j::2): whole passes over its shards and the entry of the last
+        # image it took
+        readers = 2
+        seen = resume_at * per_round // readers
+        ep, rem = divmod(seen - 1, n_train // readers)
+        per_shard = n_train // len(imagenet.list_shards(data_dir, "train."))
+        want_rows = [[[rem // per_shard, rem % per_shard + 1, ep]]
+                     * readers]
+        got_rows = ckpt.restore_flat(ck_part, step=resume_at)[2]["stream"]
+        full_rows = ckpt.restore_flat(ck_full, step=resume_at)[2]["stream"]
+        if not got_rows == full_rows == want_rows:
+            fail(f"stream: step {resume_at} cursor {got_rows} (uninterrupted "
+                 f"{full_rows}), want the cursor after round {resume_at}'s "
+                 f"data {want_rows}")
+        same = (torch.equal(resumed.flat_params, full.flat_params)
+                and torch.equal(resumed.flat_momentum, full.flat_momentum)
+                and [x["loss"] for x in res_recs]
+                == [x["loss"] for x in full_recs][resume_at:])
+        if not same:
+            fail("stream: the resumed run's params, momentum or losses "
+                 "differ from the uninterrupted run's")
+        print(f"stream: the run resumed at step {resume_at} equals the "
+              f"uninterrupted one (torch.equal, params and momentum; equal "
+              f"losses); step {resume_at}'s cursor {got_rows} is the one "
+              f"after round {resume_at}'s data [{card}]", flush=True)
+
+        # 3. two readers (the runs above): the first round as train_round
+        # received it, against the host's prepare_round_batches
+        cfg2 = dataclasses.replace(cfg, ingest_sources=2,
+                                   checkpoint_dir=ck_full)
+        src2, _, pp2, _, _ = imagenet_app.prepare_data(cfg2, args)
+        with src2:
+            want = prepare_round_batches(src2, 0, tau, cfg.seed, pp2,
+                                         torch.bfloat16)
+        bad = [k for k in want if not torch.equal(
+            got[k].reshape(-1), _as_tensor(want[k]).reshape(-1))
+            or tuple(got[k].shape) != tuple(want[k].shape)]
+        if bad or len(src2.loaders) != 2:
+            fail(f"stream[full]: the first round's {bad} differ from "
+                 f"prepare_round_batches on the host ({len(src2.loaders)} "
+                 f"readers)")
+        print(f"stream[full]: 2 readers; the first round on the card "
+              f"equals prepare_round_batches on the host [{card}]",
+              flush=True)
+
+        # 4. the same shards from a gs:// bucket (the fake GCS of
+        # tests/fake_stores.py on localhost) and a checkpoint there
+        sys.path.insert(0, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tests"))
+        from fake_stores import serve_dir_for_ingest, stop_serving
+        t0 = time.perf_counter()
+        srv, url = serve_dir_for_ingest(data_dir)
+        try:
+            labels = imagenet.load_label_map(f"{url}/train.txt")
+
+            def source(where):
+                return StreamingRoundSource(imagenet.ShardedTarLoader(
+                    imagenet.list_shards(where, "train."), labels), 1,
+                    batch, tau)
+
+            with source(url) as g, source(data_dir) as l:
+                for r in range(bucket_rounds):
+                    gr, lr = (g.next_round(round_index=r),
+                              l.next_round(round_index=r))
+                    if not (all(np.array_equal(gr[k], lr[k]) for k in lr)
+                            and g.cursor_at(r) == l.cursor_at(r)):
+                        fail(f"stream[gs]: round {r} over gs:// differs "
+                             f"from the local stream's")
+            read_s = time.perf_counter() - t0
+            flat, step, extra = ckpt.restore_flat(ck_full)
+            t0 = time.perf_counter()
+            ckpt.save("gs://bkt/ck", flat, step=step, extra=extra)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gflat, gstep, gextra = ckpt.restore_flat("gs://bkt/ck")
+            load_s = time.perf_counter() - t0
+            diff = [k for k in flat if not torch.equal(
+                _as_tensor(flat[k]), _as_tensor(gflat[k]))]
+            if gstep != step or diff or sorted(gflat) != sorted(flat) or \
+                    gextra.get("stream") != extra.get("stream"):
+                fail(f"stream[gs]: the bucket step differs: {diff[:5]}")
+            print(f"stream[gs]: {bucket_rounds} rounds over gs:// equal the "
+                  f"local stream's bit for bit ({read_s:.2f}s with the "
+                  f"server's start); step {step} saved to gs:// in "
+                  f"{save_s:.2f}s, restored in {load_s:.2f}s, every tensor "
+                  f"equal to the local step's; peak RSS {_rss_mib():.0f} MiB "
+                  f"[{card}]", flush=True)
+        finally:
+            stop_serving(srv)
+    finally:
+        ParallelTrainer.train_round = orig_round
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        shutil.rmtree(root, ignore_errors=True)
     return {"launches": launches, "steps": steps_of}
 
 
@@ -1534,7 +1862,15 @@ def main() -> None:
     serve = phase_serve(card)
     train = phase_train(card)
     ckp = phase_checkpoint(card)
-    inet = phase_imagenet(card)
+    import shutil
+    import tempfile
+    corpus = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        write_corpus(corpus)
+        inet = phase_imagenet(card, corpus)
+        stream = phase_stream(card, corpus, inet["mean"])
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -1562,6 +1898,8 @@ def main() -> None:
              k: c["lrn_fwd"] for k, c in ckp["launches"].items()},
          "imagenet_phase_launches": {
              k: c["lrn_fwd"] for k, c in inet["launches"].items()},
+         "stream_phase_launches": {
+             k: c["lrn_fwd"] for k, c in stream["launches"].items()},
          "max_abs_err": max(agg["max_abs_err"], lrn_train["max_abs_err"]),
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
@@ -1583,6 +1921,8 @@ def main() -> None:
              k: c["lrn_bwd"] for k, c in ckp["launches"].items()},
          "imagenet_phase_launches": {
              k: c["lrn_bwd"] for k, c in inet["launches"].items()},
+         "stream_phase_launches": {
+             k: c["lrn_bwd"] for k, c in stream["launches"].items()},
          "max_abs_err": lrn_train["max_abs_err"], **bwd,
          "timed_at": "norm1 + norm2, batch 256, bfloat16, recompute mode",
          "saved_scale_route_launches": train["saved_launches"]["lrn_bwd"],
@@ -1597,6 +1937,8 @@ def main() -> None:
              k: c["maxpool_bwd"] for k, c in ckp["launches"].items()},
          "imagenet_phase_launches": {
              k: c["maxpool_bwd"] for k, c in inet["launches"].items()},
+         "stream_phase_launches": {
+             k: c["maxpool_bwd"] for k, c in stream["launches"].items()},
          "max_abs_err": pool["max_abs_err"], **mp["ties"],
          "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
                      "tie-heavy input",
@@ -1605,7 +1947,8 @@ def main() -> None:
          **common}],
         "train_steps": train["steps"],
         "checkpoint_phase_steps": ckp["steps"],
-        "imagenet_phase_steps": inet["steps"]}), flush=True)
+        "imagenet_phase_steps": inet["steps"],
+        "stream_phase_steps": stream["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,8 @@
 `models/adult/adult.prototxt` + `LoadAdultDataSpec.scala`), extended to a
 trainable 2-class MLP. The last 20% of the rows are the held-out eval.
 
-Usage (one process per card; every rank loads the whole CSV):
+Usage (one process per card; every rank loads the whole CSV and keeps its
+machine's slice, which the loop's sampler splits over the machine's ranks):
 
     python -m sparknet_tpu_torch.apps.adult_app --data adult.data \\
         [--device cpu] [key=value ...]
@@ -15,6 +16,7 @@ import argparse
 from ..data.adult import AdultLoader
 from ..data.dataset import ArrayDataset
 from ..model.spec import Filler, InputSpec, NetSpec
+from ..parallel.mesh import machine_topology
 from ..solver import SolverConfig
 from ..utils.config import RunConfig
 from ..zoo import _heads, _ip, _relu
@@ -62,6 +64,8 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     cfg = default_config().with_overrides(*args.overrides)
     train_ds, test_ds, n_features = build_datasets(args.data)
+    m, pc, _, _ = machine_topology()
+    train_ds, test_ds = train_ds.host_shard(m, pc), test_ds.host_shard(m, pc)
     train(cfg, adult_net(cfg.local_batch, n_features), train_ds, test_ds,
           device=args.device)
 

@@ -5,7 +5,10 @@ Reference defaults preserved: batch 100, τ=10, eval every 5 rounds, solver
 lr 0.001 fixed / momentum 0.9 / weight decay 0.004
 (`CifarApp.scala:20,127,107`; `models/cifar10/cifar10_quick_solver.prototxt`).
 
-Usage (one process per card; a plain launch is a world of one):
+Usage (one process per card; a plain launch is a world of one). Every rank
+loads the whole set and keeps its machine's slice (`host_shard` by
+`machine_topology`, as the JAX app keeps its host's); the loop's sampler
+splits that slice over the machine's ranks:
 
     python -m sparknet_tpu_torch.apps.cifar_app --data-dir data/cifar10 \\
         [--device cpu] [--config run.json] [key=value ...]
@@ -17,6 +20,7 @@ import argparse
 
 from ..data.cifar import CifarLoader
 from ..data.dataset import ArrayDataset
+from ..parallel.mesh import machine_topology
 from ..solver import SolverConfig
 from ..utils.config import RunConfig
 from .train_loop import resolve_spec, train
@@ -50,9 +54,11 @@ def main(argv=None) -> None:
     if args.data_dir:
         cfg.data_dir = args.data_dir
     cfg = cfg.with_overrides(*args.overrides)
-    # every rank loads the whole set identically; the loop's sampler
-    # gives each rank its own partition
     train_ds, test_ds = build_datasets(cfg)
+    # every rank loads identically, then keeps its machine's disjoint
+    # slice (the reference's repartition + per-executor cache)
+    m, pc, _, _ = machine_topology()
+    train_ds, test_ds = train_ds.host_shard(m, pc), test_ds.host_shard(m, pc)
     spec = resolve_spec(cfg, data=(cfg.local_batch, 3, 32, 32),
                         label=(cfg.local_batch, 1))
     train(cfg, spec, train_ds, test_ds, device=args.device)

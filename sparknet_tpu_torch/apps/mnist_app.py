@@ -7,8 +7,8 @@ mnist_graph.py` optimizer block: lr = 0.01 * 0.95^(epoch)). The exp-decay is
 expressed with the solver's `exp` policy: gamma^iter with gamma chosen so one
 epoch (train_size/batch iters) decays by 0.95.
 
-Usage (one process per card; every rank loads the whole set and the loop's
-sampler gives each rank its partition):
+Usage (one process per card; every rank loads the whole set and keeps its
+machine's slice, which the loop's sampler splits over the machine's ranks):
 
     python -m sparknet_tpu_torch.apps.mnist_app --data-dir data/mnist \\
         [--device cpu] [--config run.json] [key=value ...]
@@ -19,6 +19,7 @@ import argparse
 
 from ..data.dataset import ArrayDataset
 from ..data.mnist import MnistLoader
+from ..parallel.mesh import machine_topology
 from ..solver import SolverConfig
 from ..utils.config import RunConfig
 from .train_loop import resolve_spec, train
@@ -55,6 +56,8 @@ def main(argv=None) -> None:
         cfg.data_dir = args.data_dir
     cfg = cfg.with_overrides(*args.overrides)
     train_ds, test_ds = build_datasets(cfg)
+    m, pc, _, _ = machine_topology()
+    train_ds, test_ds = train_ds.host_shard(m, pc), test_ds.host_shard(m, pc)
     spec = resolve_spec(cfg, data=(cfg.local_batch, 1, 28, 28),
                         label=(cfg.local_batch, 1))
     train(cfg, spec, train_ds, test_ds, device=args.device)

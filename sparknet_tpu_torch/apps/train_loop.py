@@ -12,12 +12,28 @@ process per card:
     log loss, health, the conv1[0] probe        -> logger + HealthMonitor
     every checkpoint_every rounds: save         -> utils/checkpoint
 
-Each round draws `RoundSampler.next_round(round_index=r)` over the whole
-dataset (every rank loads it identically, with one partition per rank);
-a `batch_transform` (the ImageNet app's crop, mean and cast) runs on each
-τ-slice of that world batch with a round-keyed generator, and this rank
-takes its block of the batch axis — the data the JAX package's device of
-the same index gets.
+Where the ranks sit (`parallel/mesh.py:machine_topology`): rank r is
+local rank l of the local_size ranks on machine m — the JAX package's
+device l of host m. A dataset `train_ds` is this machine's corpus (every
+rank of a machine loads the same one; the ImageNet app gives machine m
+its shards m::n_machines): each round draws `RoundSampler.next_round(
+round_index=r)` with local_size workers over it, a `batch_transform` (the
+ImageNet app's crop, mean and cast) runs on each τ-slice of that machine
+batch with a round-keyed generator, and this rank takes block l of the
+batch axis — the data the JAX package's device l of host m gets. On one
+machine that is block `rank` of the world batch.
+
+`train_ds` may instead be a round SOURCE, an object with
+`next_round(round_index=...)` (`data/streaming.py`'s sources over tar
+shards larger than host RAM, with one worker: this rank's batch): it
+replaces the sampler. A streaming source is stateful: its position is
+a cursor, which each checkpoint records as `extra["stream"]` in the JAX
+package's format — one list per machine of [shard, entry, epochs] rows,
+one row per reader, gathered over the group in local-rank order — taken
+at the round the checkpoint follows (`cursor_at`), not at the prefetched
+next one. A resume seeks every rank's readers to its rows; a checkpoint
+of another machine count or reader count restarts the stream at shard 0.
+A rollback drops the prefetched round and the stream simply continues.
 
 The round pipeline, as the JAX loop runs it by default:
   - round prep (sampling, the transform, the cast to the compute dtype:
@@ -46,7 +62,9 @@ The prep thread's and the collector's exceptions re-raise in the main
 thread.
 
 Checkpoints (`checkpoint_dir`) are the reference's replica layout on a
-local directory (`parallel/trainer.py:checkpoint_tree`). Stage 1, on every
+local directory or a bucket prefix (gs://, s3://; a world over several
+machines needs a store every machine reads) (`parallel/trainer.py:
+checkpoint_tree`). Stage 1, on every
 rank, gathers the momentum and copies the state to host memory; rank 0
 then writes it (stage 2), inline or on the background writer
 (`checkpoint_async`). `resume` restarts at the newest step, with the
@@ -60,10 +78,9 @@ generators keyed (seed, R + g * 2**20, g, t)).
 Not ported yet, and what the loop does with each:
   - settings that would change results raise NotImplementedError:
     `elastic`, `trainer_impl="named"`, `state_sharding` other than
-    "replicated", streaming ingest (a `next_round` source),
-    `heartbeat_path`, a bucket `checkpoint_dir` (gs://, s3://), and the
-    per-shard checkpoint layout (`checkpoint_sharded="on"`, or "auto" at
-    more than one rank, where the reference writes one file per shard);
+    "replicated", `heartbeat_path`, and the per-shard checkpoint layout
+    (`checkpoint_sharded="on"`, or "auto" at more than one rank, where
+    the reference writes one file per shard);
   - levers that do not change the numbers are accepted and logged as not
     yet ported: `fused_boundary` (an eager round already averages right
     after its last step), `compile_cache_dir`, `status_port`, `pod_dir`,
@@ -86,7 +103,7 @@ from ..model.layers import OpsImpl
 from ..model.net import CompiledNet
 from ..model.spec import NetSpec
 from ..obs import trace as obs_trace
-from ..parallel.mesh import init_data_group
+from ..parallel.mesh import DataGroup, init_data_group, machine_topology
 from ..parallel.trainer import ParallelTrainer, TrainState
 from ..utils import checkpoint as ckpt
 from ..utils.config import RunConfig
@@ -136,7 +153,7 @@ def resolve_solver(cfg: RunConfig):
     return cfg.solver
 
 
-def check_config(cfg: RunConfig, train_ds) -> list:
+def check_config(cfg: RunConfig) -> list:
     """Raise on settings that would change results and are not ported;
     return the names of the accepted-but-not-ported levers that are on."""
     if cfg.checkpoint_sharded not in ("auto", "on", "off"):
@@ -147,11 +164,7 @@ def check_config(cfg: RunConfig, train_ds) -> list:
         "trainer_impl='named'": cfg.trainer_impl == "named",
         f"state_sharding={cfg.state_sharding!r}":
             cfg.state_sharding != "replicated",
-        "streaming ingest": hasattr(train_ds, "next_round"),
         "heartbeat_path": cfg.heartbeat_path is not None,
-        "checkpoint_dir on a bucket store (gs://, s3://)":
-            bool(cfg.checkpoint_dir)
-            and cfg.checkpoint_dir.startswith(("gs://", "s3://")),
         "checkpoint_sharded='on' (per-shard checkpoint files)":
             bool(cfg.checkpoint_dir) and cfg.checkpoint_sharded == "on",
     }
@@ -186,10 +199,11 @@ def train(cfg: RunConfig, spec: NetSpec, train_ds: ArrayDataset,
     `eval_transform` (e.g. `data.preprocess.ImagePreprocessor`) convert
     each train τ-slice / eval batch of raw examples to net inputs; without
     one, 4D inputs in Caffe's NCHW layout are transposed to NHWC once.
+    `train_ds` / `test_ds` are this machine's share (module docstring).
     `prefetch=False` prepares each round on the main thread (module
     docstring). Returns the final state."""
     log = logger or default_logger(cfg.workdir)
-    levers = check_config(cfg, train_ds)
+    levers = check_config(cfg)
     precision.set_policy(cfg.precision)
     resolve_solver(cfg)
     net = CompiledNet.compile(spec)
@@ -243,7 +257,7 @@ def _stack(slices):
     return np.stack(slices)
 
 
-def prepare_round_batches(source: RoundSampler, rnd: int, tau: int,
+def prepare_round_batches(source, rnd: int, tau: int,
                           seed: int, batch_transform, compute_dt,
                           retry: int = 0,
                           health: Optional[HealthConfig] = None,
@@ -251,18 +265,24 @@ def prepare_round_batches(source: RoundSampler, rnd: int, tau: int,
     """One round's host-side work: sample -> per-τ-slice preprocessing
     (fresh random crops from a generator keyed (seed, round, slice), so a
     resume reproduces the crops) -> cast to `compute_dt` (read on the
-    main thread: the policy is thread-local). Returns the world's
-    [tau, world * local_batch, ...] batches; a bfloat16 input is a CPU
+    main thread: the policy is thread-local). `source` is a
+    `RoundSampler` or a round source (`next_round`). Returns the source's
+    [tau, workers * local_batch, ...] batches; a bfloat16 input is a CPU
     `torch.bfloat16` tensor.
 
-    `retry` is the rollback generation: a retried round draws logical
-    round rnd + retry * 2**20 and re-keys the transform's generators
-    (seed, that round, retry, slice). With `health` enabled, the
+    `retry` is the rollback generation: a retried round of a stateless
+    sampler draws logical round rnd + retry * 2**20, and the transform's
+    generators are re-keyed (seed, that round, retry, slice). A stateful
+    streaming source keeps the true round index (its cursors are keyed on
+    it): continuing the stream already moves the data on. With `health`
+    enabled, the
     configured rounds are poisoned before the cast, on their first pass
     only (`first_pass`: the round is above the highest one already run),
     so a retried window is clean while later configured rounds still
     fire."""
-    data_rnd = rnd + retry * _RETRY_DATA_OFFSET if retry else rnd
+    stateless = isinstance(source, RoundSampler)
+    data_rnd = rnd + retry * _RETRY_DATA_OFFSET if retry and stateless \
+        else rnd
     batches = source.next_round(round_index=data_rnd)
     if batch_transform is not None:
         slices = [batch_transform.convert_batch(
@@ -315,10 +335,26 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         log.worker = rank  # stamp each rank's JSONL records
     lb = cfg.local_batch
     ckdir = cfg.checkpoint_dir
-    sampler = RoundSampler(train_ds, n, lb, cfg.tau, seed=cfg.seed)
-    log.log(f"train examples: {len(train_ds)} ({len(train_ds) // n} per "
-            f"rank)" + (f"; test examples: {len(test_ds)}"
-                        if test_ds else ""))
+    topo = machine_topology(trainer.group)
+    machine, n_machines, local_rank, local_size = topo
+    where = (f"{n} ranks: machine {machine} of {n_machines}, local rank "
+             f"{local_rank} of {local_size}")
+    if hasattr(train_ds, "next_round"):
+        source = train_ds
+        if getattr(source, "n_workers", 1) != 1:
+            raise ValueError(
+                f"a round source of {source.n_workers} workers: a rank's "
+                f"source holds its own batch (one worker)")
+        block = 0
+        log.log(f"train source: streaming ({where})"
+                + (f"; test examples: {len(test_ds)}" if test_ds else ""))
+    else:
+        source = RoundSampler(train_ds, local_size, lb, cfg.tau,
+                              seed=cfg.seed)
+        block = local_rank
+        log.log(f"train examples: {len(train_ds)} on this machine "
+                f"({len(train_ds) // local_size} per rank; {where})"
+                + (f"; test examples: {len(test_ds)}" if test_ds else ""))
     state = trainer.init_state(cfg.seed)
     start_round = 0
     resumed_extra: Dict[str, Any] = {}
@@ -326,6 +362,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         flat, start_round, resumed_extra = ckpt.restore_flat(ckdir)
         state = trainer.state_from_checkpoint(flat, resumed_extra)
         log.log(f"resumed from checkpoint round {start_round}")
+        _seek_stream(source, resumed_extra, log, topo)
     health_cfg = (cfg.health if cfg.health is not None
                   else HealthConfig(enabled=False))
     monitor = HealthMonitor(health_cfg) if health_cfg.enabled else None
@@ -368,11 +405,11 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         t0 = time.perf_counter()
         with obs_trace.span("round_prep", round=rnd):
             batches = prepare_round_batches(
-                sampler, rnd, cfg.tau, cfg.seed, batch_transform,
+                source, rnd, cfg.tau, cfg.seed, batch_transform,
                 compute_dt, retry=retry_,
                 health=health_cfg if monitor else None,
                 first_pass=first_pass)
-            batches = {k: v[:, rank * lb:(rank + 1) * lb]
+            batches = {k: v[:, block * lb:(block + 1) * lb]
                        for k, v in batches.items()}
             if h2d_prefetch:
                 with obs_trace.span("h2d_prefetch", round=rnd):
@@ -462,12 +499,16 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             while collect_pending:
                 collect_pending.popleft().result()
 
+    stateful = not isinstance(source, RoundSampler)
+
     def drop_pending() -> None:
         """Drop the prefetched round: cancel it, or wait out a running
         prep (it must not race the retried round's), re-raising its
-        failure."""
+        failure. A stateful source's prefetched round is always waited
+        out, so that it has always left the stream: where the stream
+        resumes does not hang on whether the prep thread had started."""
         nonlocal pending
-        if pending is not None and not pending.cancel():
+        if pending is not None and (stateful or not pending.cancel()):
             pending.result()
         pending = None
 
@@ -529,6 +570,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                     continue  # don't evaluate a poisoned state
                 with timers.phase("eval"):
                     acc = _evaluate(trainer, state, test_ds, cfg.eval_batch,
+                                    (local_rank, local_size),
                                     transform=eval_transform)
                 log.log(f"test accuracy: {acc:.4f}", rnd)
                 log.metrics(rnd, test_accuracy=acc)
@@ -575,6 +617,8 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                              and monitor.recently_anomalous(rnd))
                 with timers.phase("checkpoint"):
                     _save_checkpoint(cfg, trainer, state, rnd + 1,
+                                     source=source, last_round=rnd,
+                                     local_size=local_size,
                                      anomalous=anomalous,
                                      health_state=_health_state(
                                          retry, lr_scale, monitor),
@@ -629,8 +673,11 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                         f"abort: {e}")
     if ckdir and start_round < cfg.max_rounds:
         # start_round >= max_rounds: the loop ran no round, and the
-        # restored step is already the final state
+        # restored step is already the final state (a save now would also
+        # carry no stream cursor: cursor_at has seen no rounds)
         _save_checkpoint(cfg, trainer, state, cfg.max_rounds, retain=False,
+                         source=source, last_round=cfg.max_rounds - 1,
+                         local_size=local_size,
                          anomalous=(monitor is not None and
                                     monitor.recently_anomalous(
                                         cfg.max_rounds - 1)),
@@ -660,25 +707,91 @@ def _health_state(retry: int, lr_scale: float,
             "rollbacks": int(rollbacks)}
 
 
+def _stream_rows(source, last_round: Optional[int],
+                 group: DataGroup, local_size: int) -> Optional[list]:
+    """The stream cursors after `last_round` in the JAX package's format:
+    one list per machine of [shard, entry, epochs] rows, one row per
+    reader, the machine's ranks in local-rank order (the rows of the JAX
+    host that reads the same shards). None when the source is not
+    seekable or no longer holds that round's cursor. Collective over the
+    group: every rank calls it at every save, and a rank whose reader
+    count differs from the others' raises on every rank."""
+    if last_round is None or not hasattr(source, "cursor_at"):
+        return None
+    cur = source.cursor_at(last_round)
+    if cur is not None and not isinstance(cur, list):
+        cur = [cur]  # a single-reader source
+    rows = torch.tensor([[s, e, ep] for (s, e), ep in cur or ()],
+                        dtype=torch.int64).reshape(-1, 3)
+    dev = group.device
+    counts = group.all_gather(torch.tensor(
+        [cur is not None, len(rows)], dtype=torch.int64, device=dev)).cpu()
+    if not bool(counts[:, 0].all()):
+        return None
+    if len(set(counts[:, 1].tolist())) != 1:
+        raise ValueError(
+            f"stream cursor rows by rank {counts[:, 1].tolist()}: every "
+            f"rank must run the same number of readers")
+    every = group.all_gather(rows.to(dev)).cpu()  # [world, readers, 3]
+    return [every[m * local_size:(m + 1) * local_size].reshape(
+        -1, 3).tolist() for m in range(group.size // local_size)]
+
+
+def _seek_stream(source, extra: Dict[str, Any], log: Logger,
+                 topo) -> None:
+    """Resume this rank's readers at the checkpoint's cursor rows: its
+    machine's list, the block of this local rank. A change in the machine
+    count or the reader count restarts the stream at shard 0 (the shard
+    assignment changed, so the old cursors mean nothing). A flat
+    [shard, entry, epochs] per machine is a one-reader cursor."""
+    rows = extra.get("stream")
+    if rows is None:
+        return
+    machine, n_machines, local_rank, local_size = topo
+    if len(rows) != n_machines:
+        log.log(f"stream cursor in checkpoint covers {len(rows)} hosts, "
+                f"now {n_machines}: restarting stream at shard 0")
+        return
+    host_rows = rows[machine]
+    if host_rows and not isinstance(host_rows[0], list):
+        host_rows = [host_rows]
+    per, rem = divmod(len(host_rows), local_size)
+    mine = host_rows[local_rank * per:(local_rank + 1) * per]
+    if rem or not per or not hasattr(source, "seek_rows") or \
+            not source.seek_rows(mine):
+        log.log(f"stream cursor in checkpoint covers {len(host_rows)} "
+                f"readers, source has a different count: restarting "
+                f"stream at shard 0")
+        return
+    pos = ", ".join(f"shard {s} entry {e} (epoch {ep})"
+                    for s, e, ep in mine)
+    log.log(f"stream resumed at {pos}")
+
+
 def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
                      state: TrainState, step: int, retain: bool = True,
-                     anomalous: bool = False,
+                     source=None, last_round: Optional[int] = None,
+                     local_size: int = 1, anomalous: bool = False,
                      health_state: Optional[Dict[str, Any]] = None,
                      writer: Optional[ckpt.AsyncCheckpointWriter] = None
                      ) -> None:
     """Two-stage save. Stage 1 (here, blocking, on every rank): the state
     in the replica layout, copied to host memory the snapshot owns — the
-    next round updates the device buffers in place. Stage 2 (serialize,
-    digest, persist, retain to 3) runs on rank 0 only: inline when
-    `writer` is None, else on the background writer. The bytes, digests
-    and tags are the same either way."""
+    next round updates the device buffers in place — and the stream
+    cursors after `last_round`, gathered. Stage 2 (serialize, digest,
+    persist, retain to 3) runs on rank 0 only: inline when `writer` is
+    None, else on the background writer. The bytes, digests and tags are
+    the same either way."""
     tree = trainer.checkpoint_tree(state)
+    stream = _stream_rows(source, last_round, trainer.group, local_size)
     if trainer.group.rank != 0:
         return
 
     def persist() -> None:
         extra: Dict[str, Any] = {"n_devices": trainer.group.size, "tp": 1,
                                  "publish_t": round(time.time(), 3)}
+        if stream is not None:
+            extra["stream"] = stream
         if anomalous:
             extra["anomalous"] = True
         if health_state is not None:
@@ -715,17 +828,19 @@ def _to_device_layout(ds: ArrayDataset, net: CompiledNet) -> ArrayDataset:
 
 
 def _evaluate(trainer: ParallelTrainer, state: TrainState,
-              test_ds: ArrayDataset, eval_batch: int, transform=None
-              ) -> float:
-    """Accuracy over the test set in global batches of `eval_batch`, each
-    split evenly over the ranks (this rank evaluates its block); a tail
-    past the last full batch runs as one smaller batch, weighted by its
-    size. At most n-1 trailing examples are left out. `transform`
-    converts each batch of raw examples (`convert_batch(train=False)`:
-    e.g. a center crop and the mean on uint8 pixels), so one batch of
-    net inputs exists at a time."""
-    n = trainer.group.size
-    rank = trainer.group.rank
+              test_ds: ArrayDataset, eval_batch: int, local: tuple,
+              transform=None) -> float:
+    """Accuracy over the test set in machine batches of `eval_batch`, each
+    split evenly over the machine's ranks (`local` = (local_rank,
+    local_size)) — the JAX
+    package's host batch over its local devices; every machine holds a
+    test set of the same size. A tail past the last full batch runs as
+    one smaller batch, weighted by its size. At most n-1 trailing
+    examples are left out. `transform` converts each batch of raw
+    examples (`convert_batch(train=False)`: e.g. a center crop and the
+    mean on uint8 pixels), so one batch of net inputs exists at a time.
+    The counts are summed over the whole group."""
+    rank, n = local
     eval_batch = min(eval_batch, len(test_ds))
     eval_batch = max(n, (eval_batch // n) * n)
     if len(test_ds) < eval_batch:

@@ -1,5 +1,6 @@
-"""Datasets, loaders, preprocessing and the τ-round sampler (copies of the
-JAX package's data modules, streaming ingest and bucket stores aside)."""
+"""Datasets, loaders, preprocessing, the τ-round sampler, streaming round
+sources and the gs:// / s3:// clients (copies of the JAX package's data
+modules)."""
 from .cifar import CifarLoader  # noqa: F401
 from .mnist import MnistLoader  # noqa: F401
 from .adult import AdultLoader  # noqa: F401

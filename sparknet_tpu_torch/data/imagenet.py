@@ -1,8 +1,10 @@
 """ImageNet-scale sharded-tar ingest.
 
-A copy of `sparknet_tpu/data/imagenet.py` for the port, local shards
-only: a `gs://` or `s3://` path raises NotImplementedError (bucket stores
-are ROADMAP A6c).
+A copy of `sparknet_tpu/data/imagenet.py` for the port: local shards
+through the native plane's member index (or tarfile), and `gs://` /
+`s3://` shards through the port's own clients (`data/gcs.py`,
+`data/s3.py`) as one streamed ranged GET each, with a per-epoch member
+index that is walked again when the object's generation or ETag changes.
 
 Parity with reference `loaders/ImageNetLoader.scala` + `ScaleAndConvert.scala`:
 a dataset is a set of tar shards (each holding JPEGs) plus a
@@ -30,18 +32,15 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 
-def _local(path: str) -> str:
-    if path.startswith(("gs://", "s3://")):
-        raise NotImplementedError(
-            f"{path!r}: bucket data dirs (gs://, s3://) are not ported to "
-            f"the PyTorch port yet (ROADMAP A6c); use a local directory")
-    return path
-
-
 def load_label_map(path: str) -> Dict[str, int]:
-    """Parse 'filename label' lines (reference getLabels, lines 44-57)."""
-    with open(_local(path)) as f:
-        text = f.read()
+    """Parse 'filename label' lines (reference getLabels, lines 44-57).
+    Accepts a local path, a gs:// url, or an s3:// url (the reference read
+    its label file from S3 the same way, `ImageNetLoader.scala:44-57`)."""
+    from .gcs import gs_read, is_gs_path
+    from .s3 import is_s3_path, s3_read
+    text = (gs_read(path).decode() if is_gs_path(path)
+            else s3_read(path).decode() if is_s3_path(path)
+            else open(path).read())
     out: Dict[str, int] = {}
     for ln in text.splitlines():
         ln = ln.strip()
@@ -53,9 +52,17 @@ def load_label_map(path: str) -> Dict[str, int]:
 
 
 def list_shards(root: str, prefix: str = "") -> List[str]:
-    """All .tar shard paths under root matching prefix, sorted."""
+    """All .tar shard paths under root matching prefix, sorted. gs:// and
+    s3:// roots list the bucket natively (HTTP, no FUSE, no SDK — the
+    reference listed its S3 bucket per run, `ImageNetLoader.scala:28-41`)."""
+    from .gcs import gs_list_shards, is_gs_path
+    from .s3 import is_s3_path, s3_list_shards
+    if is_gs_path(root):
+        return gs_list_shards(root, prefix)
+    if is_s3_path(root):
+        return s3_list_shards(root, prefix)
     shards = sorted(
-        os.path.join(root, f) for f in os.listdir(_local(root))
+        os.path.join(root, f) for f in os.listdir(root)
         if f.startswith(prefix) and f.endswith(".tar"))
     if not shards:
         raise FileNotFoundError(f"no .tar shards under {root!r} "
@@ -63,9 +70,33 @@ def list_shards(root: str, prefix: str = "") -> List[str]:
     return shards
 
 
-def path_size(path: str) -> int:
-    """Byte size of a local shard (corpus identity uses sizes)."""
-    return os.path.getsize(_local(path))
+def path_size(path: str, fresh: bool = False) -> int:
+    """Byte size of a local file or gs://|s3:// object (shard-weight
+    estimates and corpus identity use sizes; bucket sizes come from the
+    listing metadata, cached — no extra round trip per shard).
+    `fresh=True` bypasses the bucket caches with one metadata request."""
+    from .gcs import gs_size, is_gs_path
+    from .s3 import is_s3_path, s3_size
+    if is_gs_path(path):
+        return gs_size(path, fresh=fresh)
+    if is_s3_path(path):
+        return s3_size(path, fresh=fresh)
+    return os.path.getsize(path)
+
+
+def path_stat(path: str, fresh: bool = False) -> Tuple[int, Optional[str]]:
+    """(size, freshness token) — generation for gs://, ETag for s3://,
+    None for local files. Both ride the SAME metadata request the
+    size-only probe already made, and together they catch what size alone
+    cannot: an EQUAL-size replacement of a bucket object (which would
+    otherwise be carved at stale member offsets into garbage)."""
+    from .gcs import gs_stat, is_gs_path
+    from .s3 import is_s3_path, s3_stat
+    if is_gs_path(path):
+        return gs_stat(path, fresh=fresh)
+    if is_s3_path(path):
+        return s3_stat(path, fresh=fresh)
+    return os.path.getsize(path), None
 
 
 def _check_tar_terminator(path: str) -> None:
@@ -86,6 +117,25 @@ def _check_tar_terminator(path: str) -> None:
             raise TruncatedTarError(
                 f"tar {path!r} ended without the zero end-of-archive "
                 f"block — truncated at a member boundary?")
+
+
+def _open_tar(path: str) -> tarfile.TarFile:
+    """Local shards open seekably; gs://|s3:// shards open as ONE streamed
+    ranged GET (`r|` mode) with transparent reconnect-resume — the
+    per-task streamed GetObject of the reference
+    (`ImageNetLoader.scala:62-63`). Entry-skip on a COLD resume reads
+    through the stream (tar offsets of entry N are unknown without an
+    index), costing one partial shard download once per restart; once a
+    full pass has captured the member index
+    (`ShardedTarLoader._bucket_indices`), later epochs and warm resumes
+    carve members by (offset, size) and open AT the target byte."""
+    from .gcs import gs_open_stream, is_gs_path
+    from .s3 import is_s3_path, s3_open_stream
+    if is_gs_path(path):
+        return tarfile.open(fileobj=gs_open_stream(path), mode="r|*")
+    if is_s3_path(path):
+        return tarfile.open(fileobj=s3_open_stream(path), mode="r|*")
+    return tarfile.open(path, "r")
 
 
 def host_shards(shards: Sequence[str], host_id: int, host_count: int) -> List[str]:
@@ -116,12 +166,17 @@ class ShardedTarLoader:
 
     def __init__(self, shard_paths: Sequence[str], label_map: Dict[str, int],
                  height: int = 256, width: int = 256):
-        self.shard_paths = [_local(p) for p in shard_paths]
+        self.shard_paths = list(shard_paths)
         self.label_map = label_map
         self.height = height
         self.width = width
         self.skipped = 0  # corrupt/unlabeled entries (counted, never looped on)
         self._tar_indices: Dict[str, object] = {}  # path -> C member index
+        #: bucket url -> ([(offset_data, size, isfile, basename)], the
+        #: (size, generation|ETag) stat taken before the walk): captured
+        #: during the first full tarfile walk; later epochs carve members
+        #: from the ranged stream directly
+        self._bucket_indices: Dict[str, tuple] = {}
         #: cumulative seconds inside decode calls — wall and calling-thread
         #: CPU
         self.decode_s = 0.0
@@ -161,8 +216,9 @@ class ShardedTarLoader:
                        ) -> Iterator[Tuple[bytes, int, Tuple[int, int]]]:
         """(jpeg bytes, label, cursor) for labeled file members of shard si
         after the first `skip` members: through the C member index + pread
-        when the native plane loads, else tarfile. Member numbering is
-        identical on both paths."""
+        when the native plane loads, else tarfile; a bucket shard through
+        one ranged stream (tarfile on the first walk, then the member index
+        that walk captured). Member numbering is identical on every path."""
         path = self.shard_paths[si]
         idx = self._tar_index(path)
         if idx is not None:
@@ -187,14 +243,52 @@ class ShardedTarLoader:
                             f"truncated?")
                     yield data, label, (si, e + 1)
             return
-        # tarfile iterates a boundary-truncated archive SILENTLY; the C
-        # indexer catches it via the missing terminator, and this closes
-        # the same hole on the tarfile path
-        _check_tar_terminator(path)
-        with tarfile.open(path, "r") as tar:
+        is_bucket = path.startswith(("gs://", "s3://"))
+        if is_bucket:
+            cached = self._bucket_indices.get(path)
+            if cached is not None:
+                bidx, stat_at_capture = cached
+                # a replaced object makes the recorded offsets garbage:
+                # one fresh metadata request per shard per epoch compares
+                # (size, generation|ETag) — the token catches even an
+                # EQUAL-size replacement, which size alone cannot — and
+                # falls back to the tarfile walk (which re-captures).
+                if path_stat(path, fresh=True) != stat_at_capture:
+                    del self._bucket_indices[path]
+                else:
+                    # epoch >= 2 (or post-resume with a warm index):
+                    # carve members straight out of ONE ranged stream by
+                    # recorded (offset, size) — no tarfile header
+                    # parsing, and the stream OPENS at the first needed
+                    # byte, so a mid-shard resume skips the prefix
+                    # download entirely
+                    yield from self._bucket_entries_indexed(path, si,
+                                                            skip, bidx)
+                    return
+        else:
+            # tarfile iterates a boundary-truncated archive SILENTLY; the
+            # C indexer catches it via the missing terminator, and this
+            # closes the same hole on the fallback path (no native plane,
+            # extension-header archives). Remote objects are served
+            # consistently by the store, so a truncated UPLOAD is the
+            # uploader's bug — each ranged read is still length-checked.
+            _check_tar_terminator(path)
+        # freshness token captured BEFORE the walk: if the object is
+        # replaced WHILE we stream it, the index holds old-byte offsets —
+        # pairing it with the post-walk stat would make every later
+        # epoch's staleness compare pass and carve garbage forever;
+        # pairing it with the pre-walk stat makes the next epoch's fresh
+        # stat differ and forces a re-walk
+        stat_at_walk = path_stat(path, fresh=True) if is_bucket else None
+        index = []  # (offset_data, size, isfile, basename) per member
+        with _open_tar(path) as tar:
             entry = 0
             for member in tar:  # ALWAYS advances (bug fix vs reference)
                 entry += 1
+                if is_bucket:
+                    index.append((member.offset_data, member.size,
+                                  member.isfile(),
+                                  os.path.basename(member.name)))
                 if entry <= skip or not member.isfile():
                     continue
                 name = os.path.basename(member.name)
@@ -203,15 +297,77 @@ class ShardedTarLoader:
                     self.skipped += 1
                     continue
                 yield tar.extractfile(member).read(), label, (si, entry)
+        if is_bucket:
+            # cache any walk that REACHED end-of-archive (this code runs
+            # only when the member loop exhausted the tar): even a skip>0
+            # resume continuation iterated the stream from byte 0 and
+            # recorded every member, so its index is complete too — the
+            # old `skip == 0` gate made a resumed shard pay one extra
+            # full header-parsing walk for nothing. The PRE-walk
+            # (size, token) stat rides along for the staleness check.
+            self._bucket_indices[path] = (index, stat_at_walk)
+
+    #: forward gaps below this are read-and-discarded on the carve path;
+    #: larger ones reopen the ranged stream at the target offset
+    BUCKET_REOPEN_GAP = 1 << 20
+
+    def _bucket_entries_indexed(self, path: str, si: int, skip: int, index
+                                ) -> Iterator[Tuple[bytes, int,
+                                                    Tuple[int, int]]]:
+        """Indexed bucket read: one sequential ranged GET per epoch (like
+        the tarfile path) but members sliced by recorded (offset, size) —
+        the Python tar-header walk the C indexer removed for local shards
+        (the JAX package's input-pipeline finding) is gone here too. Short reads fail
+        loudly: a shortened member must not decode as routine corruption."""
+        from .gcs import gs_open_stream, is_gs_path
+        from .s3 import s3_open_stream
+        opener = gs_open_stream if is_gs_path(path) else s3_open_stream
+        stream, pos = None, 0
+        try:
+            for e in range(skip, len(index)):
+                offset, size, isfile, name = index[e]
+                if not isfile:
+                    continue
+                label = self.label_map.get(name)
+                if label is None:
+                    self.skipped += 1
+                    continue
+                if stream is None or offset - pos > self.BUCKET_REOPEN_GAP:
+                    if stream is not None:
+                        stream.close()
+                    stream, pos = opener(path, start=offset), offset
+                while pos < offset:  # discard inter-member gap
+                    chunk = stream.read(min(offset - pos, 1 << 16))
+                    if not chunk:
+                        raise IOError(f"{path}: EOF in gap before member "
+                                      f"{e + 1} at byte {pos}")
+                    pos += len(chunk)
+                parts = []
+                need = size
+                while need:
+                    chunk = stream.read(need)
+                    if not chunk:
+                        raise IOError(
+                            f"{path}: short read at member {e + 1} "
+                            f"({size - need} of {size} bytes) — object "
+                            f"shorter than its index?")
+                    parts.append(chunk)
+                    need -= len(chunk)
+                pos = offset + size
+                yield b"".join(parts), label, (si, e + 1)
+        finally:
+            if stream is not None:
+                stream.close()
 
     def _tar_index(self, path: str):
-        """Cached C member index for a local shard; None -> tarfile path
-        (native plane unavailable, or extension headers)."""
+        """Cached C member index for a LOCAL shard; None -> tarfile path
+        (bucket urls, native plane unavailable, or extension headers)."""
         if path in self._tar_indices:
             return self._tar_indices[path]
         from . import jpeg_plane
         idx = None
-        if jpeg_plane.supports_tar_index():
+        if not path.startswith(("gs://", "s3://")) and \
+                jpeg_plane.supports_tar_index():
             try:
                 idx = jpeg_plane.tar_index(path)
             except jpeg_plane.TruncatedTarError:

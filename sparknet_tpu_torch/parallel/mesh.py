@@ -11,13 +11,16 @@ a world of one, formed through a FileStore in the workdir — the
 counterpart of `initialize_multihost` returning False. A caller that forms
 several ranks without torchrun (the tests) passes `store_path`, `rank` and
 `world_size`, so no port is fixed.
+
+`machine_topology` places this rank among the machines: the JAX package's
+`host_id_count` (one process per host) in the port's terms.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -110,3 +113,44 @@ def init_data_group(device=None, *, workdir: Optional[str] = None,
     kw["device_id"] = dev if dev.type == "cuda" else None
     dist.init_process_group(backend, rank=rank, world_size=world, **kw)
     return DataGroup(rank, world, dev, owned=True, store_path=own_store)
+
+
+def machine_topology(group: Optional[DataGroup] = None
+                     ) -> Tuple[int, int, int, int]:
+    """(machine, n_machines, local_rank, local_size) of this rank — the
+    port's counterpart of the JAX package's `host_id_count`. A JAX process
+    drives every device of its host; a port process drives one card, so
+    machine m of the JAX package's `process_index` is the ranks
+    m * local_size ... (m + 1) * local_size - 1 here (torchrun numbers
+    ranks machine by machine). Read from torchrun's `RANK`, `WORLD_SIZE`,
+    `LOCAL_RANK` and `LOCAL_WORLD_SIZE` (or the group's rank and size);
+    without `LOCAL_WORLD_SIZE` the world is one machine. Every split
+    decision of the ImageNet app and the loop goes through here.
+
+    Raises ValueError on a world whose machines hold different numbers of
+    ranks (the JAX package's hosts each drive the same device count); with
+    a `group` of several ranks the check is collective, so every rank
+    raises together."""
+    rank = group.rank if group is not None else int(
+        os.environ.get("RANK", 0))
+    world = group.size if group is not None else int(
+        os.environ.get("WORLD_SIZE", 1))
+    local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    local_rank = int(os.environ.get("LOCAL_RANK", rank % max(local_size, 1)))
+    ok = (1 <= local_size <= world and world % local_size == 0
+          and local_rank == rank % local_size)
+    if group is not None and group.size > 1:
+        mine = torch.tensor([local_size, int(ok)], dtype=torch.int64,
+                            device=group.device)
+        rows = group.all_gather(mine).cpu()
+        ok = bool(rows[:, 1].all()) and bool((rows[:, 0] == local_size).all())
+        sizes = rows[:, 0].tolist()
+    else:
+        sizes = [local_size]
+    if not ok:
+        raise ValueError(
+            f"a world of {world} ranks whose machines hold different "
+            f"numbers of ranks (LOCAL_WORLD_SIZE by rank: {sizes}; rank "
+            f"{rank} has LOCAL_RANK {local_rank}): every machine must run "
+            f"the same number of ranks, numbered machine by machine")
+    return rank // local_size, world // local_size, local_rank, local_size

@@ -1,5 +1,5 @@
 """Checkpoint / resume: params + optimizer state + loop counter, on a local
-directory.
+directory or a bucket prefix (`gs://`, `s3://`).
 
 The counterpart of `sparknet_tpu/utils/checkpoint.py` for its monolithic
 layout, on the same on-disk format, so that each package restores the
@@ -11,9 +11,17 @@ other's steps:
     sha256-hex}, "ext_dtypes": {key: "bfloat16"}, "extra": {...},
     "commit_ts": t}, written LAST: it is the commit marker.
 
-A save writes both files into a `.tmp-*` work directory and renames it to
-`step-N`, so a reader sees a whole step or none. `restore_flat` (auto-
-latest) falls back to the newest step that verifies; `retain` never
+A local save writes both files into a `.tmp-*` work directory and renames
+it to `step-N`, so a reader sees a whole step or none. A bucket store
+mirrors the layout (`<root>/step-N/{state.npz,meta.json}`) through the
+port's own clients (`data/gcs.py`, `data/s3.py`): state.npz goes up
+through the chunked writers (GCS resumable sessions and compose, S3
+multipart), which make an object visible only when it is finalized, and
+meta.json lands last, so an interrupted save is not-a-checkpoint there
+too; reads take the ranged streams with reconnect-resume. Only a 404 on
+a bucket means absent: an outage or an auth failure propagates.
+
+`restore_flat` (auto-latest) falls back to the newest step that verifies; `retain` never
 deletes the newest verified step, nor the newest verified non-anomalous
 one (the rollback target). `AsyncCheckpointWriter` is stage 2 of the train
 loop's two-stage save: one background thread serializes, digests and
@@ -25,21 +33,23 @@ stored as its uint16 bit pattern with `ext_dtypes[key] = "bfloat16"` (the
 reference's encoding) and comes back from a restore as a bfloat16 CPU
 tensor, bit for bit. The view is done with torch, not `ml_dtypes`.
 
-Not ported yet: bucket stores (`gs://`, `s3://`) raise NotImplementedError
-naming the store; a step in the per-shard layout (meta.json with
+Not ported yet: a step in the per-shard layout (meta.json with
 "shards") raises NotImplementedError naming the layout when it is read —
 it is not reported as corrupt; the logical (NamedSharding) layout.
 """
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import shutil
 import tempfile
 import time
+import urllib.error
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -51,13 +61,34 @@ class CheckpointCorruptError(RuntimeError):
     (unreadable meta.json / state.npz, missing keys, or digest mismatch)."""
 
 
-def _check_local(directory: str) -> None:
-    if isinstance(directory, str) and directory.startswith(("gs://",
-                                                            "s3://")):
-        store = "GCS" if directory.startswith("gs://") else "S3"
-        raise NotImplementedError(
-            f"{store} bucket checkpoint stores ({directory[:5]}...) are not "
-            f"ported yet; use a local checkpoint_dir")
+# -- store plumbing: local directories vs gs://|s3:// bucket prefixes -------
+
+def is_bucket_path(path: str) -> bool:
+    return isinstance(path, str) and path.startswith(("gs://", "s3://"))
+
+
+def _bucket_ops(path: str) -> SimpleNamespace:
+    """The scheme-matched object operations (read / ranged stream / small
+    atomic write / chunked-parallel large write / delete / list / stat)."""
+    if path.startswith("gs://"):
+        from ..data import gcs as m
+        return SimpleNamespace(
+            read=m.gs_read, open_stream=m.gs_open_stream,
+            write=m.gs_write, write_large=m.gs_write_large,
+            delete=m.gs_delete, list_urls=m.gs_list_urls,
+            stat=m.gs_stat)
+    from ..data import s3 as m
+    return SimpleNamespace(
+        read=m.s3_read, open_stream=m.s3_open_stream,
+        write=m.s3_write, write_large=m.s3_write_large,
+        delete=m.s3_delete, list_urls=m.s3_list_urls,
+        stat=m.s3_stat)
+
+
+def _join(directory: str, *names: str) -> str:
+    if is_bucket_path(directory):
+        return "/".join((directory.rstrip("/"),) + names)
+    return os.path.join(directory, *names)
 
 
 def _leaf_to_numpy(leaf: Any) -> Tuple[np.ndarray, Optional[str]]:
@@ -98,25 +129,38 @@ def _digest(arr: np.ndarray) -> str:
 # -- process-local "last step I wrote and verified" cache --------------------
 #
 # retain()'s protect scan would re-read and re-hash the newest step on every
-# save. When that step is the one this process just wrote, its digests were
-# computed from the bytes it wrote; the cache records the step with the
-# (size, mtime_ns) of its state.npz right after the write, and retain()
+# save (on a bucket, a full ranged GET of state.npz). When that step is the
+# one this process just wrote, its digests were computed from the bytes it
+# handed to the store, which commits them all or nothing; the cache records
+# the step with a fingerprint of its state.npz taken right after the write —
+# local (size, mtime_ns), bucket (size, generation|ETag) — and retain()
 # takes it as verified only while that fingerprint still matches. Anything
-# that rewrites the file falls back to the full verify.
+# that rewrites the object falls back to the full verify.
 _written_verified: Dict[str, Tuple[int, Tuple]] = {}
 
 
+def _cache_key(directory: str) -> str:
+    return (directory.rstrip("/") if is_bucket_path(directory)
+            else os.path.abspath(directory))
+
+
 def _fingerprint(directory: str, step: int) -> Optional[Tuple]:
+    """("local", size, mtime_ns) or ("bucket", size, generation|ETag) of
+    the step's state.npz; None when unreadable (a cache miss, never
+    verified)."""
+    url = _join(directory, f"step-{int(step)}", "state.npz")
     try:
-        st = os.stat(os.path.join(directory, f"step-{int(step)}",
-                                  "state.npz"))
-    except OSError:
+        if is_bucket_path(directory):
+            size, gen = _bucket_ops(directory).stat(url, fresh=True)
+            return ("bucket", int(size), gen)
+        st = os.stat(url)
+    except Exception:
         return None
-    return (st.st_size, st.st_mtime_ns)
+    return ("local", st.st_size, st.st_mtime_ns)
 
 
 def _record_written(directory: str, step: int) -> None:
-    key = os.path.abspath(directory)
+    key = _cache_key(directory)
     fp = _fingerprint(directory, step)
     if fp is None:
         _written_verified.pop(key, None)
@@ -125,7 +169,7 @@ def _record_written(directory: str, step: int) -> None:
 
 
 def _written_verified_hit(directory: str, step: int) -> bool:
-    cached = _written_verified.get(os.path.abspath(directory))
+    cached = _written_verified.get(_cache_key(directory))
     return (cached is not None and cached[0] == int(step)
             and _fingerprint(directory, step) == cached[1])
 
@@ -136,7 +180,60 @@ def invalidate_written_cache(directory: Optional[str] = None) -> None:
     if directory is None:
         _written_verified.clear()
     else:
-        _written_verified.pop(os.path.abspath(directory), None)
+        _written_verified.pop(_cache_key(directory), None)
+
+
+def _bucket_step_files(directory: str) -> Dict[int, set]:
+    """{step: {file names under step-N/}} from ONE bucket listing (steps,
+    the orphan sweep and retention all key off it)."""
+    base = directory.rstrip("/")
+    out: Dict[int, set] = {}
+    for url in _bucket_ops(directory).list_urls(base):
+        rel = url[len(base) + 1:]
+        head, _, rest = rel.partition("/")
+        if head.startswith("step-") and head[5:].isdigit():
+            out.setdefault(int(head[5:]), set()).add(rest)
+    return out
+
+
+def _delete_step(directory: str, step: int) -> None:
+    """Remove step-N. On a bucket meta.json goes FIRST, so a reader racing
+    the delete sees not-a-checkpoint rather than a torn step; when it
+    cannot be deleted the step is left whole (retention is best-effort and
+    the next retain sweeps again)."""
+    if not is_bucket_path(directory):
+        shutil.rmtree(_join(directory, f"step-{step}"), ignore_errors=True)
+        return
+    ops = _bucket_ops(directory)
+    prefix = _join(directory, f"step-{step}")
+    try:
+        ops.delete(f"{prefix}/meta.json")
+    except Exception as e:
+        warnings.warn(f"checkpoint retention: could not delete "
+                      f"{prefix}/meta.json ({e}) — step left in place",
+                      RuntimeWarning)
+        return
+    for url in ops.list_urls(prefix):
+        try:
+            ops.delete(url)
+        except Exception:
+            pass  # best-effort; the next retain sweeps again
+
+
+def _sweep_bucket_orphans(directory: str, ops,
+                          listing: Dict[int, set]) -> None:
+    """Delete stray `.part-` components and every file of a meta-less
+    (uncommitted, killed) step from a bucket listing. Best-effort; the
+    next save sweeps again."""
+    for s, fs in listing.items():
+        for f in fs:
+            if ".part-" in f or "meta.json" not in fs:
+                try:
+                    ops.delete(_join(directory, f"step-{s}", f))
+                except Exception as e:
+                    warnings.warn(f"checkpoint orphan sweep: could not "
+                                  f"delete step-{s}/{f}: {e}",
+                                  RuntimeWarning)
 
 
 def _sweep_stale_tmp(directory: str,
@@ -157,6 +254,39 @@ def _sweep_stale_tmp(directory: str,
                 continue
             if not os.path.exists(os.path.join(path, "meta.json")):
                 shutil.rmtree(path, ignore_errors=True)
+
+
+def read_file(directory: str, name: str) -> Optional[bytes]:
+    """The bytes of a small file beside the steps (the ImageNet app's
+    `mean_image.npz`), or None when it does not exist (on a bucket, a
+    404; other store failures propagate)."""
+    path = _join(directory, name)
+    if is_bucket_path(directory):
+        try:
+            return _bucket_ops(directory).read(path)
+        except urllib.error.HTTPError as e:
+            if e.code == 404:
+                return None
+            raise
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except FileNotFoundError:
+        return None
+
+
+def write_file(directory: str, name: str, data: bytes) -> None:
+    """Write a small file beside the steps atomically: a temporary file
+    renamed into place, or one object upload on a bucket."""
+    if is_bucket_path(directory):
+        _bucket_ops(directory).write(_join(directory, name), bytes(data))
+        return
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, name)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
 
 
 def _prepare_save(tree: Any, step: int, extra: Optional[Dict[str, Any]]
@@ -180,11 +310,12 @@ def _prepare_save(tree: Any, step: int, extra: Optional[Dict[str, Any]]
 
 def save(directory: str, tree: Any, *, step: int,
          extra: Optional[Dict[str, Any]] = None) -> str:
-    """Atomically write checkpoint `step-N` under `directory`; returns its
-    path. Records a SHA-256 digest per array in meta.json, stamps
-    `commit_ts` just before meta.json is written, and sweeps the leftovers
-    of crashed earlier saves."""
-    _check_local(directory)
+    """Atomically write checkpoint `step-N` under `directory` (a local path
+    or a gs://|s3:// prefix); returns its path. Records a SHA-256 digest
+    per array in meta.json, stamps `commit_ts` just before meta.json is
+    written, and sweeps the leftovers of crashed earlier saves."""
+    if is_bucket_path(directory):
+        return _save_bucket(directory, tree, step=step, extra=extra)
     os.makedirs(directory, exist_ok=True)
     _sweep_stale_tmp(directory, current_step=step)
     flat, meta = _prepare_save(tree, step, extra)
@@ -205,9 +336,29 @@ def save(directory: str, tree: Any, *, step: int,
     return final
 
 
+def _save_bucket(directory: str, tree: Any, *, step: int,
+                 extra: Optional[Dict[str, Any]] = None) -> str:
+    """Bucket save: orphans of crashed saves swept, the step decommitted
+    (its meta.json deleted) before an overwrite, state.npz up through the
+    chunked writer, meta.json LAST as the commit marker."""
+    ops = _bucket_ops(directory)
+    final = _join(directory, f"step-{int(step)}")
+    _sweep_bucket_orphans(directory, ops, _bucket_step_files(directory))
+    flat, meta = _prepare_save(tree, step, extra)
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    ops.delete(f"{final}/meta.json")  # decommit before overwrite
+    ops.write_large(f"{final}/state.npz", buf.getbuffer())
+    meta["commit_ts"] = round(time.time(), 3)
+    ops.write(f"{final}/meta.json", json.dumps(meta).encode())
+    _record_written(directory, step)
+    return final
+
+
 def _list_steps(directory: str) -> List[int]:
     """All step numbers present as directories (no validity check)."""
-    _check_local(directory)
+    if is_bucket_path(directory):
+        return sorted(_bucket_step_files(directory))
     if not os.path.isdir(directory):
         return []
     return sorted(int(d[5:]) for d in os.listdir(directory)
@@ -216,7 +367,21 @@ def _list_steps(directory: str) -> List[int]:
 
 def _load_meta(path: str) -> Optional[Dict[str, Any]]:
     """meta.json as a dict, or None when missing or unparseable (the
-    caller treats that as not-a-checkpoint)."""
+    caller treats that as not-a-checkpoint). On a bucket only a 404 means
+    absent: an outage or an auth/5xx failure propagates, so a transient
+    store fault is never read as "no checkpoint"."""
+    if is_bucket_path(path):
+        try:
+            raw = _bucket_ops(path).read(f"{path}/meta.json")
+        except urllib.error.HTTPError as e:
+            if e.code == 404:
+                return None
+            raise
+        try:
+            meta = json.loads(raw)
+        except ValueError:
+            return None
+        return meta if isinstance(meta, dict) else None
     try:
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
@@ -229,7 +394,7 @@ def latest_step(directory: str) -> Optional[int]:
     """Newest step whose meta.json is readable; a step with a missing or
     unparseable one is skipped with a warning."""
     for s in reversed(_list_steps(directory)):
-        path = os.path.join(directory, f"step-{s}")
+        path = _join(directory, f"step-{s}")
         if _load_meta(path) is not None:
             return s
         warnings.warn(f"checkpoint {path}: meta.json missing/unreadable — "
@@ -252,8 +417,27 @@ def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], int,
             f"{path}: a per-shard checkpoint (checkpoint_sharded layout); "
             f"reading per-shard steps is not ported yet")
     try:
-        with np.load(os.path.join(path, "state.npz")) as z:
+        if is_bucket_path(path):
+            # one ranged stream with reconnect-resume, copied into ONE
+            # buffer
+            stream = _bucket_ops(path).open_stream(f"{path}/state.npz")
+            try:
+                src: Any = io.BytesIO()
+                shutil.copyfileobj(stream, src, 1 << 20)
+                src.seek(0)
+            finally:
+                stream.close()
+        else:
+            src = os.path.join(path, "state.npz")
+        with np.load(src) as z:
             flat: Dict[str, Any] = {k: z[k] for k in z.files}
+    except (ConnectionError, TimeoutError):
+        raise  # store trouble, not corruption
+    except urllib.error.HTTPError as e:
+        if e.code == 404:  # committed meta over a missing state
+            raise CheckpointCorruptError(
+                f"{path}: state.npz missing: {e}") from e
+        raise
     except Exception as e:
         raise CheckpointCorruptError(f"{path}: state.npz unreadable: {e}"
                                      ) from e
@@ -288,15 +472,14 @@ def restore_flat(directory: str, step: Optional[int] = None
     CheckpointCorruptError. With step=None the newest step that verifies
     wins; corrupt newer ones are skipped with a warning."""
     if step is not None:
-        _check_local(directory)
-        return _load_checkpoint(os.path.join(directory, f"step-{int(step)}"))
+        return _load_checkpoint(_join(directory, f"step-{int(step)}"))
     steps = _list_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {directory!r}")
     last_err: Optional[Exception] = None
     for s in reversed(steps):
         try:
-            return _load_checkpoint(os.path.join(directory, f"step-{s}"))
+            return _load_checkpoint(_join(directory, f"step-{s}"))
         except CheckpointCorruptError as e:
             warnings.warn(f"{e} — falling back to the previous checkpoint",
                           RuntimeWarning)
@@ -324,7 +507,7 @@ def restore_newest_verified(directory: str, skip_anomalous: bool = False
     `extra["anomalous"]` when asked — verification is the load, so the
     rollback reads the state once. Returns (flat, step, extra) or None."""
     for s in reversed(_list_steps(directory)):
-        path = os.path.join(directory, f"step-{s}")
+        path = _join(directory, f"step-{s}")
         meta = _load_meta(path)
         if meta is None:
             continue
@@ -357,7 +540,7 @@ def retain(directory: str, keep: int = 3) -> None:
     protect = set(steps[-keep:]) if keep else set()
     newest_verified = None
     for s in reversed(steps):
-        path = os.path.join(directory, f"step-{s}")
+        path = _join(directory, f"step-{s}")
         meta = _load_meta(path)
         if meta is None:
             continue
@@ -373,8 +556,7 @@ def retain(directory: str, keep: int = 3) -> None:
                 break
     for s in steps:
         if s not in protect:
-            shutil.rmtree(os.path.join(directory, f"step-{s}"),
-                          ignore_errors=True)
+            _delete_step(directory, s)
 
 
 class AsyncCheckpointWriter:

@@ -172,18 +172,6 @@ def test_anomalous_checkpoints_skipped_by_rollback_selector(tmp_path):
     assert step == 1 and "commit_ts" in extra
 
 
-@pytest.mark.parametrize("root", ["gs://bucket/ck", "s3://bucket/ck"])
-def test_bucket_stores_are_refused_naming_the_store(root):
-    store = "GCS" if root.startswith("gs") else "S3"
-    for call in (lambda: ckpt.save(root, {"a": np.zeros(1)}, step=1),
-                 lambda: ckpt.latest_step(root),
-                 lambda: ckpt.restore_flat(root),
-                 lambda: ckpt.restore_flat(root, step=1),
-                 lambda: ckpt.retain(root)):
-        with pytest.raises(NotImplementedError, match=store):
-            call()
-
-
 def test_a_per_shard_step_is_refused_not_reported_corrupt(tmp_path):
     d = tmp_path / "ck"
     ckpt.save(str(d), {"a": np.zeros(2)}, step=1)

@@ -20,8 +20,10 @@ numpy generators.
   test_train_matches_the_jax_train`; convolution sums run in another
   order) and test accuracies equal; in a world of one and in two gloo
   ranks against a JAX mesh of two.
-- The CLI with `--device cpu`, and the refusals (streaming ingest, a world
-  over several machines, a bucket data dir), each raising with its name.
+- The CLI with `--device cpu`, and a world whose machines hold different
+  rank counts, refused (streaming, buckets and several machines are
+  held to the JAX package in test_torch_streaming.py,
+  test_torch_buckets.py and test_torch_multimachine.py).
 """
 import json
 import os
@@ -326,23 +328,31 @@ def test_the_cli_trains_on_the_cpu(corpus, tmp_path):
     assert all(x["nonfinite"] == 0 and "t_data_ms" in x for x in losses)
 
 
-REFUSED = {
-    "stream always": (["--stream", "always"], {}, "streaming ingest"),
-    "stream auto above the budget": (["--ram-budget-mb", "0"], {},
-                                     "streaming ingest"),
-    "several machines": ([], {"WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "1"},
-                         "multi-host shard split"),
-    "bucket data dir": (["--data-dir", "gs://bucket/imagenet"], {},
-                        "bucket data dirs"),
+RAGGED = {
+    "3 ranks, 2 a machine": {"WORLD_SIZE": "3", "LOCAL_WORLD_SIZE": "2",
+                             "RANK": "2"},
+    "LOCAL_RANK out of step with RANK": {
+        "WORLD_SIZE": "4", "LOCAL_WORLD_SIZE": "2", "RANK": "1",
+        "LOCAL_RANK": "0"},
 }
 
 
-@pytest.mark.parametrize("what", sorted(REFUSED))
-def test_unported_corpus_settings_raise(what, corpus, monkeypatch):
-    argv, env, match = REFUSED[what]
-    for k, v in env.items():
+@pytest.mark.parametrize("what", sorted(RAGGED))
+def test_a_world_of_ragged_machines_raises(what, corpus, monkeypatch):
+    """Machines with different rank counts have no JAX-package
+    counterpart (its hosts each drive the same devices): the app raises
+    before it reads a shard."""
+    for k, v in RAGGED[what].items():
         monkeypatch.setenv(k, v)
-    if "--data-dir" not in argv:
-        argv = ["--data-dir", str(corpus), *argv]
-    with pytest.raises(NotImplementedError, match=match):
-        imagenet_app.main(["--device", "cpu", *argv, *OVERRIDES])
+    with pytest.raises(ValueError, match="different numbers of ranks"):
+        imagenet_app.prepare_data(
+            imagenet_app.default_config().with_overrides(
+                f"data_dir={corpus}", *OVERRIDES),
+            _args(corpus))
+
+
+def _args(corpus, *argv):
+    import argparse
+    p = argparse.ArgumentParser()
+    imagenet_app.add_data_args(p)
+    return p.parse_args(["--data-dir", str(corpus), *argv])

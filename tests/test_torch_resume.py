@@ -178,8 +178,6 @@ def test_resume_at_max_rounds_runs_nothing_and_keeps_the_step(cifar_dir,
 
 
 @pytest.mark.parametrize("what,extra", [
-    ("checkpoint_dir on a bucket", ("checkpoint_dir=gs://b/ck",)),
-    ("checkpoint_dir on a bucket", ("checkpoint_dir=s3://b/ck",)),
     ("checkpoint_sharded='on'", ("checkpoint_sharded=on",)),
 ])
 def test_unported_checkpoint_settings_raise(cifar_dir, tmp_path, what,
