@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: does the port serve and train
 CaffeNet on the card, through the ImageNet app from JPEG shards too,
-cached and streamed, from a directory and from a bucket?
+cached and streamed, from a directory and from a bucket, watched by its
+telemetry, and through the loss of a worker?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -148,7 +149,39 @@ Phases, in order; any failure exits non-zero before the result line:
    Prints per round loss, round_s, t_data_ms, t_prep_ms, img/s with the
    data wait and the streaming thread's decode seconds; per run its
    launches and the process's peak RSS; the stream cursor of every step.
-8. The kernels line, `{"kernels": [...]}`, then the result line
+8. Elastic: the same CaffeNet, solver, bfloat16, b256 and τ = 5 through
+   `apps.train_loop.train` in a world of one, on seeded int8 images, with
+   cuDNN's deterministic algorithms:
+   - run "watched": `status_port=0`, `pod_port=0`, `heartbeat_path`,
+     `pod_dir`, `checkpoint_dir` every 2 rounds, and `elastic`
+     (`expected_workers=2`, `min_workers=1`, `tau_adapt`, no poll
+     interval, no re-probe backoff, `dead_probes=2`). The round hook beats
+     a nominal worker 1 with a small `round_s` — so this rank is the slow
+     one and runs a shorter τ — and backdates that beat after round 3.
+     While the run is live the hook scrapes `/metrics` (the train
+     families, the membership gauges, the card's memory gauges) and
+     `/pod/status` (workers 0 and 1, epoch 0). After it: the run left by
+     ElasticRelaunch, exit code 75, at round 6 (suspected at 4, probed at
+     5 and 6), with one `resize` event with dead ["1"]; the boundary step
+     6 was written by the loop's main thread and verifies; both heartbeat
+     files have the JAX package's schema and say "resize" at epoch 1;
+     every round launched lrn_fwd / lrn_bwd / maxpool_bwd 2 / 2 / 3 times
+     per executed step (a round under a τ vector runs fewer steps; at
+     least one did), and every loss is finite.
+   - run "resume 4 -> 1": step 6 is written again as a 4-rank replica
+     step (params rows the run's, momentum rows the run's times four
+     seeded factors, `n_devices` 4) and `train(resume=True)` runs 2
+     rounds at a world of one: the log says "ELASTIC resume", the
+     restored params are torch.equal to the step's row 0 and the
+     restored momentum to numpy `reduce_momentum_rows(rows,
+     "norm_rescale")` uploaded; both rounds finite, launches as above.
+   Prints per round the boundary's own cost (the membership poll and
+   decision, `t_member_ms`, and the loop's heartbeat writes) beside
+   round_s,
+   round_s against phase 4's, every save's seconds and bytes (the
+   boundary save marked), the 4-row step's bytes and restore seconds, and
+   one `/metrics` scrape over HTTP in ms beside the registry's own render.
+9. The kernels line, `{"kernels": [...]}`, then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -790,6 +823,10 @@ def _capture_logger():
         def __init__(self):
             super().__init__(echo=False)
             self.records = []
+            self.lines = []
+
+        def log(self, message, i=None):
+            self.lines.append(message)
 
         def metrics(self, step, **kv):
             self.records.append(dict(kv, round=step))
@@ -1767,6 +1804,374 @@ def phase_stream(card: str, data_dir: str, cached_mean=None,
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": launches, "steps": steps_of}
 
+#: the heartbeat schema both packages write (`utils/heartbeat.py`): every
+#: beat's own keys, the elastic loop's, and the pod heartbeat's
+HEARTBEAT_KEYS = {"t", "pid", "role", "step", "status", "rollbacks"}
+ELASTIC_BEAT_KEYS = {"membership_epoch", "n_members"}
+POD_BEAT_KEYS = {"worker", "n_workers", "round_s", "data_wait_s"}
+
+
+def phase_elastic(card: str, phase4_round_s=None, device: str = "cuda",
+                  crop: int = 227, batch: int = 256, tau: int = 5,
+                  n_classes: int = 1000, kill_after: int = 3) -> dict:
+    """A watched elastic run and the 4 -> 1 resume of full-width CaffeNet
+    (module docstring, phase 8); returns each run's launch counts and
+    executed steps. The arguments let the phase be rehearsed on the CPU
+    at a small size (counts then 0)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import zoo
+    from sparknet_tpu_torch.apps.train_loop import train
+    from sparknet_tpu_torch.data.dataset import ArrayDataset
+    from sparknet_tpu_torch.model.net import CompiledNet, params_from_jax
+    from sparknet_tpu_torch.obs.pod import worker_heartbeat_path
+    from sparknet_tpu_torch.obs.registry import MetricsRegistry
+    from sparknet_tpu_torch.parallel.elastic import ElasticRelaunch
+    from sparknet_tpu_torch.parallel.trainer import (ParallelTrainer,
+                                                     reduce_momentum_rows)
+    from sparknet_tpu_torch.solver import SolverConfig
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+    from sparknet_tpu_torch.utils.config import ElasticConfig, RunConfig
+    from sparknet_tpu_torch.utils.heartbeat import HeartbeatWriter
+
+    r = np.random.default_rng(8)
+    n = tau * batch
+    data = r.integers(-128, 128, (n, crop, crop, 3), dtype=np.int8)
+    labels = r.integers(0, n_classes, (n, 1)).astype(np.int32)
+    train_ds = ArrayDataset({"data": data, "label": labels})
+    spec = zoo.caffenet(batch=batch, crop=crop, n_classes=n_classes)
+    kernels = device == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    pod_dir = os.path.join(root, "pod")
+    ck_a, ck_b = os.path.join(root, "ck_watched"), os.path.join(root, "ck4")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    originals = (ckpt.save, ckpt.restore_flat, HeartbeatWriter.beat,
+                 ParallelTrainer.train_round,
+                 ParallelTrainer.state_from_checkpoint,
+                 MetricsRegistry.render_prometheus)
+    saves, beats, budgets, restored, renders = [], [], [], [], []
+    lock = threading.Lock()
+
+    def save(directory, tree, *, step, extra=None):
+        t0 = time.perf_counter()
+        path = originals[0](directory, tree, step=step, extra=extra)
+        with lock:
+            saves.append({"step": step, "s": time.perf_counter() - t0,
+                          "bytes": _dir_bytes(path), "dir": directory,
+                          "thread": threading.current_thread().name})
+        return path
+
+    def beat(self, step, *a, **kw):
+        t0 = time.perf_counter()
+        wrote = originals[2](self, step, *a, **kw)
+        with lock:
+            beats.append({"step": step, "s": time.perf_counter() - t0,
+                          "path": self.path})
+        return wrote
+
+    def train_round(self, state, batches, rng, lr_scale=1.0,
+                    tau_by_worker=None):
+        budgets.append(None if tau_by_worker is None
+                       else list(tau_by_worker))
+        return originals[3](self, state, batches, rng, lr_scale=lr_scale,
+                            tau_by_worker=tau_by_worker)
+
+    def render_prometheus(self):
+        t0 = time.perf_counter()
+        text = originals[5](self)
+        renders.append((time.perf_counter() - t0) * 1e3)
+        return text
+
+    def state_from_checkpoint(self, flat, *a, **kw):
+        st = originals[4](self, flat, *a, **kw)
+        restored.append({kind: {l: {p: t.detach().clone()
+                                    for p, t in lp.items()}
+                                for l, lp in getattr(st, kind).items()}
+                         for kind in ("params", "momentum")})
+        return st
+
+    ckpt.save = save
+    HeartbeatWriter.beat = beat
+    ParallelTrainer.train_round = train_round
+    ParallelTrainer.state_from_checkpoint = state_from_checkpoint
+    MetricsRegistry.render_prometheus = render_prometheus
+
+    #: the loop's own heartbeats (the nominal worker 1's are the smoke's)
+    own_beats = {os.path.join(root, "hb.json"),
+                 worker_heartbeat_path(pod_dir, 0)}
+
+    def per_round_counts(label, log, counts_by_round):
+        """Each round's launches against its executed steps."""
+        rounds = [x for x in log.records if "loss" in x]
+        out = []
+        for x in rounds:
+            rnd = x["round"]
+            vec = budgets[rnd - rounds[0]["round"]]
+            executed = tau if vec is None else vec[0]
+            got = counts_by_round[rnd]
+            mine = [b for b in beats if b["step"] == rnd
+                    and b["path"] in own_beats]
+            print(f"elastic[{label}]: round {rnd} loss {x['loss']:.6f} "
+                  f"tau vector {vec} (executed {executed} steps) round_s "
+                  f"{x['round_s'] * 1e3:.2f} ms t_round_ms "
+                  f"{x.get('t_round_ms')} boundary: t_member_ms "
+                  f"{x.get('t_member_ms')} + the loop's beats "
+                  f"{sum(b['s'] for b in mine) * 1e3:.3f} ms "
+                  f"({len(mine)} beats) launches {got} [{card}]",
+                  flush=True)
+            if not (math.isfinite(x["loss"]) and x.get("nonfinite") == 0):
+                fail(f"elastic[{label}] round {rnd}: loss {x['loss']}, "
+                     f"nonfinite {x.get('nonfinite')}")
+            if kernels and got != {"lrn_fwd": 2 * executed,
+                                   "lrn_fwd_scale": 0,
+                                   "lrn_bwd": 2 * executed,
+                                   "maxpool_bwd": 3 * executed}:
+                fail(f"elastic[{label}] round {rnd}: launches {got} for "
+                     f"{executed} executed steps")
+            out.append({"round": rnd, "executed": executed,
+                        "round_s": x["round_s"],
+                        "member_ms": x.get("t_member_ms"),
+                        "beat_ms": sum(b["s"] for b in mine) * 1e3})
+        return rounds, out
+
+    def counting_hook(counts_by_round, extra=None):
+        last = [_read_counts()]
+
+        def hook(rnd, state):
+            now = _read_counts()
+            counts_by_round[rnd] = {k: now[k] - last[0][k] for k in now}
+            last[0] = now
+            if extra is not None:
+                extra(rnd, state)
+        return hook
+
+    try:
+        base = RunConfig(model="caffenet", n_classes=n_classes, crop=crop,
+                         solver=SolverConfig(**IMAGENET_SOLVER), tau=tau,
+                         local_batch=batch, eval_every=0,
+                         precision="bfloat16", seed=0, workdir=root,
+                         heartbeat_every_s=0.0, pod_dir=pod_dir)
+        elastic = ElasticConfig(enabled=True, expected_workers=2,
+                                min_workers=1, tau_adapt=True,
+                                poll_interval_s=0.0, reprobe_backoff_s=0.0,
+                                dead_probes=2)
+        # run "watched": a nominal worker 1 beats a small round_s (so
+        # this rank is the slow one and gets a shorter τ) until
+        # kill_after, then its beat is backdated
+        hb1 = HeartbeatWriter(worker_heartbeat_path(pod_dir, 1),
+                              interval_s=0.0)
+        hb1.beat(0, status="ok", round_s=0.001, force=True)
+        cfg = dataclasses.replace(
+            base, max_rounds=kill_after + 8, status_port=0, pod_port=0,
+            heartbeat_path=os.path.join(root, "hb.json"),
+            checkpoint_dir=ck_a, checkpoint_every=2, elastic=elastic)
+        scraped = {}
+
+        def watch(rnd, state):
+            if rnd < kill_after:
+                hb1.beat(rnd, status="ok", round_s=0.001, force=True)
+            elif rnd == kill_after:
+                p = worker_heartbeat_path(pod_dir, 1)
+                rec = json.load(open(p))
+                rec["t"] = time.time() - 1e4
+                json.dump(rec, open(p, "w"))
+            if rnd == 2:
+                host, port = cfg.status_address
+                t0 = time.perf_counter()
+                scraped["metrics"] = urllib.request.urlopen(
+                    f"http://{host}:{port}/metrics", timeout=30
+                ).read().decode()
+                scraped["metrics_ms"] = (time.perf_counter() - t0) * 1e3
+                scraped["render_ms"] = renders[-1]
+                host, port = cfg.pod_address
+                scraped["pod"] = json.loads(urllib.request.urlopen(
+                    f"http://{host}:{port}/pod/status", timeout=30).read())
+
+        log = _capture_logger()
+        counts_a = {}
+        _zero_counts()
+        t0 = time.perf_counter()
+        try:
+            train(cfg, spec, train_ds, None, logger=log, device=device,
+                  round_hook=counting_hook(counts_a, watch))
+            fail("elastic[watched]: the run ended without a relaunch")
+        except ElasticRelaunch as e:
+            code, reason = e.code, e.reason
+        wall = time.perf_counter() - t0
+        rounds_a, table_a = per_round_counts("watched", log, counts_a)
+        events = [x for x in log.records if x.get("event") == "resize"]
+        boundary = kill_after + 3  # suspected, probed twice, evicted
+        if code != 75 or len(events) != 1 or events[0]["dead"] != ["1"] \
+                or events[0]["round"] != boundary:
+            fail(f"elastic[watched]: exit code {code}, resize events "
+                 f"{events}; want 75 and one eviction of worker 1 at round "
+                 f"{boundary}")
+        if [x["round"] for x in rounds_a] != list(range(boundary)):
+            fail(f"elastic[watched]: rounds {[x['round'] for x in rounds_a]}")
+        short = [x for x in table_a if x["executed"] < tau]
+        if not short:
+            fail(f"elastic[watched]: no round ran under a τ vector below "
+                 f"{tau}: {budgets}")
+        step_dir = os.path.join(ck_a, f"step-{boundary}")
+        boundary_saves = [s for s in saves if s["dir"] == ck_a
+                          and s["step"] == boundary
+                          and s["thread"] == "MainThread"]
+        if not (ckpt.verify(step_dir) and boundary_saves):
+            fail(f"elastic[watched]: no verified boundary step {step_dir} "
+                 f"written by the loop at the boundary ({saves})")
+        families = {line.split()[2] for line in
+                    scraped.get("metrics", "").splitlines()
+                    if line.startswith("# TYPE ")}
+        want_fams = {"sparknet_train_round", "sparknet_train_loss",
+                     "sparknet_train_rounds_total",
+                     "sparknet_train_round_seconds",
+                     "sparknet_train_data_wait_seconds",
+                     "sparknet_pod_membership_epoch", "sparknet_pod_members",
+                     "sparknet_device_hbm_bytes_in_use",
+                     "sparknet_heartbeat_beats_total",
+                     "sparknet_build_info"}
+        pod = scraped.get("pod", {})
+        if not want_fams <= families or \
+                [w["worker"] for w in pod.get("workers", [])] != ["0", "1"] \
+                or pod.get("membership_epoch") != 0:
+            fail(f"elastic[watched]: /metrics lacks "
+                 f"{sorted(want_fams - families)} or /pod/status {pod}")
+        hbm = [line for line in scraped["metrics"].splitlines()
+               if line.startswith("sparknet_device_hbm_")]
+        beats_on_disk = {
+            "heartbeat_path": json.load(open(cfg.heartbeat_path)),
+            "pod worker 0": json.load(open(worker_heartbeat_path(pod_dir,
+                                                                 0)))}
+        for name, rec in beats_on_disk.items():
+            want = HEARTBEAT_KEYS | ELASTIC_BEAT_KEYS | (
+                POD_BEAT_KEYS if name.startswith("pod") else set())
+            if not want <= set(rec) or rec["status"] != "resize" or \
+                    rec["membership_epoch"] != 1 or rec["step"] != boundary:
+                fail(f"elastic[watched]: {name} heartbeat {rec}")
+        print(f"elastic[watched]: exit code {code} at round {boundary} "
+              f"({reason}); {len(rounds_a)} rounds in {wall:.2f}s wall, "
+              f"{len(short)} under a shorter τ "
+              f"({sorted({x['executed'] for x in short})} steps); "
+              f"verified boundary step {boundary}; /metrics over HTTP "
+              f"from the round hook {scraped['metrics_ms']:.2f} ms, of "
+              f"which the registry's render "
+              f"{scraped['render_ms']:.3f} ms ({len(families)} families; "
+              f"{hbm}); /pod/status workers "
+              f"{[(w['worker'], w['round_s']) for w in pod['workers']]} "
+              f"epoch {pod['membership_epoch']}; heartbeats "
+              f"{ {k: sorted(v) for k, v in beats_on_disk.items()} } "
+              f"[{card}]", flush=True)
+        warm = [x["round_s"] for x in table_a[1:]]
+        print(f"elastic[watched]: round_s {_stats(warm)} s over "
+              f"{len(warm)} rounds (τ vector rounds included) against "
+              f"phase 4's {_stats(phase4_round_s or [])} s; the boundary "
+              f"(poll + decision) t_member_ms "
+              f"{_stats([x['member_ms'] for x in table_a[1:]])}, beats "
+              f"{_stats([x['beat_ms'] for x in table_a[1:]])} ms a round "
+              f"[{card}]", flush=True)
+
+        # run "resume 4 -> 1": the boundary step rewritten as a 4-rank
+        # replica step, momentum rows the run's times seeded factors
+        flat, step, extra = originals[1](ck_a)
+        net = CompiledNet.compile(spec)
+        fr = np.random.default_rng(9)
+        factors = fr.uniform(0.5, 1.5, 4).astype(np.float32)
+        tree = {"params": {}, "momentum": {}, "it": np.full(
+            (4,), int(np.asarray(flat["it"])[0]), np.int32)}
+        expect = {"params": {}, "momentum": {}}
+        for key, a in flat.items():
+            if key == "it":
+                continue
+            kind, l, p = key.split("/")
+            a = np.asarray(a)
+            rows = (np.broadcast_to(a[:1], (4,) + a.shape[1:])
+                    if kind == "params" else
+                    np.stack([a[0] * f for f in factors]))
+            tree[kind].setdefault(l, {})[p] = rows
+            expect[kind].setdefault(l, {})[p] = (
+                rows[0] if kind == "params"
+                else reduce_momentum_rows(rows, "norm_rescale"))
+        t0 = time.perf_counter()
+        path4 = originals[0](ck_b, tree, step=step,
+                             extra=dict(extra, n_devices=4))
+        t_save4 = time.perf_counter() - t0
+        bytes4 = _dir_bytes(path4)
+        del tree, flat
+        t0 = time.perf_counter()
+        originals[1](ck_b)
+        t_restore4 = time.perf_counter() - t0
+        budgets.clear()
+        restored.clear()
+        log = _capture_logger()
+        counts_b = {}
+        _zero_counts()
+        t0 = time.perf_counter()
+        train(dataclasses.replace(base, max_rounds=step + 2,
+                                  checkpoint_dir=ck_b, checkpoint_every=0,
+                                  resume=True, elastic=elastic),
+              spec, train_ds, None, logger=log, device=device,
+              round_hook=counting_hook(counts_b))
+        wall_b = time.perf_counter() - t0
+        rounds_b, table_b = per_round_counts("resume 4->1", log, counts_b)
+        resumed = [m for m in log.lines if "ELASTIC resume" in m]
+        if not resumed or [x["round"] for x in rounds_b] != \
+                [step, step + 1] or len(restored) != 1:
+            fail(f"elastic[resume 4->1]: log {resumed}, rounds "
+                 f"{[x['round'] for x in rounds_b]}, restores "
+                 f"{len(restored)}")
+        dev = torch.device(device)
+        for kind in ("params", "momentum"):
+            want = params_from_jax(net, expect[kind], dev)
+            bad = [f"{l}/{p}" for l, lp in want.items() for p, w in lp.items()
+                   if not torch.equal(restored[0][kind][l][p], w)]
+            if bad:
+                fail(f"elastic[resume 4->1]: restored {kind} differ from "
+                     f"{'row 0' if kind == 'params' else 'reduce_momentum_rows(rows, norm_rescale)'}: {bad}")
+        print(f"elastic[resume 4->1]: {resumed[0]}; restored params "
+              f"torch.equal to the step's row 0, momentum torch.equal to "
+              f"reduce_momentum_rows(4 rows, norm_rescale) (factors "
+              f"{factors.tolist()}); the 4-row step {bytes4} bytes, saved "
+              f"in {t_save4:.3f}s, restored in {t_restore4:.3f}s; "
+              f"{len(rounds_b)} rounds in {wall_b:.2f}s wall [{card}]",
+              flush=True)
+        for s in saves:
+            print(f"elastic: save step {s['step']} of "
+                  f"{os.path.basename(s['dir'])} on {s['thread']}: "
+                  f"{s['s']:.3f}s, {s['bytes']} bytes"
+                  + (" (the boundary save)" if s in boundary_saves else "")
+                  + f" [{card}]", flush=True)
+    finally:
+        ckpt.save = originals[0]
+        HeartbeatWriter.beat = originals[2]
+        ParallelTrainer.train_round = originals[3]
+        ParallelTrainer.state_from_checkpoint = originals[4]
+        MetricsRegistry.render_prometheus = originals[5]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        shutil.rmtree(root, ignore_errors=True)
+    launches_a = {k: sum(c[k] for c in counts_a.values())
+                  for k in _read_counts()}
+    launches_b = {k: sum(c[k] for c in counts_b.values())
+                  for k in _read_counts()}
+    return {"launches": {"watched": launches_a, "resume 4->1": launches_b},
+            "steps": {"watched": sum(x["executed"] for x in table_a),
+                      "resume 4->1": sum(x["executed"] for x in table_b)},
+            "rounds": {"watched": table_a, "resume 4->1": table_b},
+            "boundary_save_s": boundary_saves[0]["s"],
+            "boundary_save_bytes": boundary_saves[0]["bytes"],
+            "step4_bytes": bytes4, "step4_restore_s": t_restore4,
+            "metrics_ms": scraped["metrics_ms"],
+            "render_ms": scraped["render_ms"]}
+
 
 def profile_step(net, params, batch, solver_cfg, card: str,
                  top: int = 14) -> None:
@@ -1871,6 +2276,7 @@ def main() -> None:
         stream = phase_stream(card, corpus, inet["mean"])
     finally:
         shutil.rmtree(corpus, ignore_errors=True)
+    elastic = phase_elastic(card, train["warm_round_s"])
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -1900,6 +2306,8 @@ def main() -> None:
              k: c["lrn_fwd"] for k, c in inet["launches"].items()},
          "stream_phase_launches": {
              k: c["lrn_fwd"] for k, c in stream["launches"].items()},
+         "elastic_phase_launches": {
+             k: c["lrn_fwd"] for k, c in elastic["launches"].items()},
          "max_abs_err": max(agg["max_abs_err"], lrn_train["max_abs_err"]),
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
@@ -1923,6 +2331,8 @@ def main() -> None:
              k: c["lrn_bwd"] for k, c in inet["launches"].items()},
          "stream_phase_launches": {
              k: c["lrn_bwd"] for k, c in stream["launches"].items()},
+         "elastic_phase_launches": {
+             k: c["lrn_bwd"] for k, c in elastic["launches"].items()},
          "max_abs_err": lrn_train["max_abs_err"], **bwd,
          "timed_at": "norm1 + norm2, batch 256, bfloat16, recompute mode",
          "saved_scale_route_launches": train["saved_launches"]["lrn_bwd"],
@@ -1939,6 +2349,8 @@ def main() -> None:
              k: c["maxpool_bwd"] for k, c in inet["launches"].items()},
          "stream_phase_launches": {
              k: c["maxpool_bwd"] for k, c in stream["launches"].items()},
+         "elastic_phase_launches": {
+             k: c["maxpool_bwd"] for k, c in elastic["launches"].items()},
          "max_abs_err": pool["max_abs_err"], **mp["ties"],
          "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
                      "tie-heavy input",
@@ -1948,7 +2360,8 @@ def main() -> None:
         "train_steps": train["steps"],
         "checkpoint_phase_steps": ckp["steps"],
         "imagenet_phase_steps": inet["steps"],
-        "stream_phase_steps": stream["steps"]}), flush=True)
+        "stream_phase_steps": stream["steps"],
+        "elastic_phase_steps": elastic["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

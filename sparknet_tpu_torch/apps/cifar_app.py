@@ -13,6 +13,10 @@ splits that slice over the machine's ranks:
     python -m sparknet_tpu_torch.apps.cifar_app --data-dir data/cifar10 \\
         [--device cpu] [--config run.json] [key=value ...]
     torchrun --nproc-per-node 4 -m sparknet_tpu_torch.apps.cifar_app ...
+
+Exit code 75 is an elastic membership change (`ElasticRelaunch`, a
+SystemExit the loop raises at the τ boundary): relaunch at the new
+world size with `resume=true`.
 """
 from __future__ import annotations
 

@@ -69,6 +69,10 @@ Usage (one process per card; a plain launch is a world of one):
         --master-addr HOST --master-port PORT \\
         -m sparknet_tpu_torch.apps.imagenet_app --data-dir gs://B/imagenet \\
         --stream always checkpoint_dir=s3://B/ck checkpoint_sharded=off ...
+
+Exit code 75 is an elastic membership change (`ElasticRelaunch`, a
+SystemExit the loop raises at the τ boundary): relaunch at the new
+world size with `resume=true`.
 """
 from __future__ import annotations
 

@@ -12,6 +12,10 @@ machine's slice, which the loop's sampler splits over the machine's ranks):
 
     python -m sparknet_tpu_torch.apps.mnist_app --data-dir data/mnist \\
         [--device cpu] [--config run.json] [key=value ...]
+
+Exit code 75 is an elastic membership change (`ElasticRelaunch`, a
+SystemExit the loop raises at the τ boundary): relaunch at the new
+world size with `resume=true`.
 """
 from __future__ import annotations
 

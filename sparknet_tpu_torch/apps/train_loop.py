@@ -75,16 +75,57 @@ dropped and the retried rounds draw another data window (round R of
 rollback generation g samples logical round R + g * 2**20, its transform
 generators keyed (seed, R + g * 2**20, g, t)).
 
+Telemetry, as the JAX loop's (`telemetry`, or a `status_port`, builds a
+per-run metrics registry that the phase timers, the throughput meter, the
+health monitor, the checkpoint writer, the heartbeat and the membership
+controller register into, with the JAX loop's metric names; the card's
+memory is sampled at every flush, `obs/device.py`):
+  - `status_port`: each machine's local rank 0 serves /metrics, /healthz
+    and /status (the JAX package serves one per process, and a process
+    there is a machine); port 0 binds an ephemeral port, written back to
+    `cfg.status_address`;
+  - `heartbeat_path`: global rank 0 rewrites one heartbeat at every flush
+    and boundary (`utils/heartbeat.py`);
+  - `pod_dir`: each machine's local rank 0 rewrites
+    `worker-<machine>.heartbeat.json` under it, with `round_s`,
+    `data_wait_s` and, when elastic, `membership_epoch` and `n_members`;
+    `pod_port`: global rank 0 serves the pod view over that prefix
+    (`obs/pod.py:PodAggregator`; the address goes to `cfg.pod_address`).
+
+Elastic membership (`elastic`, which needs `pod_dir` and
+`checkpoint_dir`): global rank 0's `MembershipController` (its own worker
+is machine 0) watches the machines' heartbeats and decides for the world.
+At every τ boundary, on every rank, its decision — a membership event or
+none, and with `tau_adapt` the per-rank τ vector — is broadcast on a gloo
+side group (a world of one needs no collective): the number of collectives
+never depends on the wall clock or the poll's rate limit, and the NCCL
+round stays queued. At launch every machine beats, then rank 0 seeds the
+membership; fewer members than `min_workers` raise TrainingHealthError
+before round 0. A port process drives one card and a torch process group
+cannot drop or add a member in place, so every membership change takes
+the JAX package's relaunch branches:
+  - one machine: drain the pipeline (the deferred records, the prefetched
+    round, the in-flight write), write the boundary checkpoint, log the
+    `resize` event and beat "resize", then raise TrainingHealthError
+    below `min_workers`, else `ElasticRelaunch` (exit 75);
+  - several machines: the same without the boundary save — the relaunch
+    resumes from the newest periodic step.
+The relaunched run resumes at its new size through
+`ParallelTrainer.state_from_checkpoint` (the elastic resume, "ELASTIC
+resume" in the log; a rollback target of another size too): params
+exact, momentum reconstructed per `elastic.momentum_policy`; a fresh
+sampler over the new rank count is the JAX package's resharded one.
+
 Not ported yet, and what the loop does with each:
   - settings that would change results raise NotImplementedError:
-    `elastic`, `trainer_impl="named"`, `state_sharding` other than
-    "replicated", `heartbeat_path`, and the per-shard checkpoint layout
-    (`checkpoint_sharded="on"`, or "auto" at more than one rank, where
-    the reference writes one file per shard);
+    `trainer_impl="named"`, `state_sharding` other than "replicated", and
+    the per-shard checkpoint layout (`checkpoint_sharded="on"`, or "auto"
+    at more than one rank, where the reference writes one file per
+    shard);
   - levers that do not change the numbers are accepted and logged as not
     yet ported: `fused_boundary` (an eager round already averages right
-    after its last step), `compile_cache_dir`, `status_port`, `pod_dir`,
-    `pod_port`, `trace_out`, `history`, `profile_dir`.
+    after its last step), `compile_cache_dir`, `trace_out`, `history`,
+    `profile_dir`.
 """
 from __future__ import annotations
 
@@ -96,25 +137,32 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import precision
 from ..data.dataset import ArrayDataset, RoundSampler
 from ..model.layers import OpsImpl
 from ..model.net import CompiledNet
 from ..model.spec import NetSpec
+from ..obs import device as obs_device
+from ..obs import pod as obs_pod
 from ..obs import trace as obs_trace
+from ..obs.http import StatusServer
+from ..obs.meta import register_build_info
+from ..obs.registry import MetricsRegistry
+from ..parallel.elastic import ElasticRelaunch, MembershipController
 from ..parallel.mesh import DataGroup, init_data_group, machine_topology
 from ..parallel.trainer import ParallelTrainer, TrainState
 from ..utils import checkpoint as ckpt
 from ..utils.config import RunConfig
 from ..utils.health import (HealthConfig, HealthMonitor, TrainingHealthError,
                             poison_batch)
+from ..utils.heartbeat import HeartbeatWriter, worker_sort_key
 from ..utils.logger import Logger, default_logger
 from ..utils.metrics import PhaseTimers, ThroughputMeter
 
-_NOT_PORTED_LEVERS = ("fused_boundary", "compile_cache_dir", "status_port",
-                      "pod_dir", "pod_port", "trace_out", "history",
-                      "profile_dir")
+_NOT_PORTED_LEVERS = ("fused_boundary", "compile_cache_dir", "trace_out",
+                      "history", "profile_dir")
 
 #: retried rounds sample a disjoint deterministic data window: round R on
 #: rollback generation g draws as logical round R + g * _RETRY_DATA_OFFSET
@@ -160,11 +208,9 @@ def check_config(cfg: RunConfig) -> list:
         raise ValueError(f"checkpoint_sharded={cfg.checkpoint_sharded!r}: "
                          f"expected 'auto', 'on', or 'off'")
     refused = {
-        "elastic": cfg.elastic is not None and cfg.elastic.enabled,
         "trainer_impl='named'": cfg.trainer_impl == "named",
         f"state_sharding={cfg.state_sharding!r}":
             cfg.state_sharding != "replicated",
-        "heartbeat_path": cfg.heartbeat_path is not None,
         "checkpoint_sharded='on' (per-shard checkpoint files)":
             bool(cfg.checkpoint_dir) and cfg.checkpoint_sharded == "on",
     }
@@ -219,9 +265,12 @@ def train(cfg: RunConfig, spec: NetSpec, train_ds: ArrayDataset,
                 f"per-shard checkpoint files, which are not ported yet; "
                 f"set checkpoint_sharded=off for the monolithic layout")
         compute_health = cfg.health is not None and cfg.health.enabled
+        elastic_tau = (cfg.elastic is not None and cfg.elastic.enabled
+                       and cfg.elastic.tau_adapt)
         trainer = ParallelTrainer(net, cfg.solver, group, tau=cfg.tau,
                                   mode=cfg.mode,
                                   compute_health=compute_health,
+                                  elastic_tau=elastic_tau,
                                   ops=OpsImpl(lrn=cfg.lrn_impl,
                                               pool=cfg.pool_impl),
                                   donate_batches=cfg.donate_batches)
@@ -355,23 +404,139 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         log.log(f"train examples: {len(train_ds)} on this machine "
                 f"({len(train_ds) // local_size} per rank; {where})"
                 + (f"; test examples: {len(test_ds)}" if test_ds else ""))
+    # elastic membership: the heartbeats under pod_dir are how it is
+    # observed, the verified checkpoint store is how a resize recovers
+    elastic_cfg = (cfg.elastic if cfg.elastic is not None
+                   and cfg.elastic.enabled else None)
+    if elastic_cfg is not None and not cfg.pod_dir:
+        raise ValueError(
+            "cfg.elastic.enabled requires cfg.pod_dir: the per-worker "
+            "heartbeats under it are how membership is observed")
+    if elastic_cfg is not None and not ckdir:
+        raise ValueError(
+            "cfg.elastic.enabled requires cfg.checkpoint_dir: a resize "
+            "restores workers from the newest verified checkpoint")
+    # a step of another world size restores through adapt_state with the
+    # policy the JAX package's live resize applies
+    policy = (elastic_cfg.momentum_policy if elastic_cfg is not None
+              else "norm_rescale")
     state = trainer.init_state(cfg.seed)
     start_round = 0
     resumed_extra: Dict[str, Any] = {}
     if ckdir and cfg.resume and ckpt.latest_step(ckdir) is not None:
         flat, start_round, resumed_extra = ckpt.restore_flat(ckdir)
-        state = trainer.state_from_checkpoint(flat, resumed_extra)
-        log.log(f"resumed from checkpoint round {start_round}")
+        saved_n = trainer.saved_world(flat, resumed_extra)
+        state = trainer.state_from_checkpoint(flat, resumed_extra, policy)
+        if saved_n == n:
+            log.log(f"resumed from checkpoint round {start_round}")
+        else:
+            log.log(f"ELASTIC resume from round {start_round}: {saved_n} "
+                    f"devices (tp=1) -> {n} (tp=1), momentum {policy}")
         _seek_stream(source, resumed_extra, log, topo)
+
+    # the per-run registry every meter, supervisor and writer below
+    # registers into; a status_port forces it (an empty /metrics would
+    # betray the scrape surface it asks for)
+    registry = (MetricsRegistry()
+                if cfg.telemetry or cfg.status_port is not None else None)
+    g_round = g_loss = c_rounds = g_round_s = g_wait_s = dev_tel = None
+    if registry is not None:
+        register_build_info(registry)
+        g_round = registry.gauge("sparknet_train_round",
+                                 "last flushed round index")
+        g_loss = registry.gauge("sparknet_train_loss",
+                                "last flushed round loss")
+        c_rounds = registry.counter("sparknet_train_rounds_total",
+                                    "rounds dispatched")
+        # the pod aggregator's straggler inputs: this worker's last round
+        # wall time and residual data wait
+        g_round_s = registry.gauge(
+            "sparknet_train_round_seconds",
+            "last round wall time on this worker")
+        g_wait_s = registry.gauge(
+            "sparknet_train_data_wait_seconds",
+            "last round's residual data wait on this worker")
+        dev_tel = obs_device.DeviceTelemetry(registry,
+                                             devices=[trainer.device])
     health_cfg = (cfg.health if cfg.health is not None
                   else HealthConfig(enabled=False))
-    monitor = HealthMonitor(health_cfg) if health_cfg.enabled else None
+    monitor = (HealthMonitor(health_cfg, registry=registry)
+               if health_cfg.enabled else None)
     # stage-2 background writer (at most one snapshot in flight); None =
     # synchronous saves
-    ck_writer = (ckpt.AsyncCheckpointWriter()
+    ck_writer = (ckpt.AsyncCheckpointWriter(registry=registry)
                  if ckdir and cfg.checkpoint_async else None)
-    timers = PhaseTimers()
-    meter = ThroughputMeter(n_chips=n)
+    timers = PhaseTimers(registry=registry)
+    meter = ThroughputMeter(n_chips=n, registry=registry)
+    # heartbeats: global rank 0 writes heartbeat_path; each machine's
+    # local rank 0 writes its pod heartbeat (registry=None: the primary
+    # heartbeat owns the sparknet_heartbeat_* families)
+    heartbeat = (HeartbeatWriter(cfg.heartbeat_path, role="train",
+                                 interval_s=cfg.heartbeat_every_s,
+                                 registry=registry)
+                 if cfg.heartbeat_path and rank == 0 else None)
+    pod_hb = (HeartbeatWriter(
+        obs_pod.worker_heartbeat_path(cfg.pod_dir, machine), role="train",
+        interval_s=cfg.heartbeat_every_s)
+        if cfg.pod_dir and local_rank == 0 else None)
+    # global rank 0 decides membership for the world (its worker is
+    # machine 0); the decision reaches the other ranks over a gloo side
+    # group, so reading it never waits on the NCCL round in flight
+    membership = (MembershipController(
+        elastic_cfg, cfg.pod_dir, self_worker=machine,
+        expected_workers=n_machines, registry=registry)
+        if elastic_cfg is not None and rank == 0 else None)
+    side = (dist.new_group(backend="gloo")
+            if elastic_cfg is not None and n > 1 else None)
+    #: the membership as the last agreement left it (every rank)
+    member_view: Dict[str, Any] = {"epoch": 0, "n_members": None}
+    # live vitals for /healthz and /status; beat_ts is the loop's own
+    # freshness stamp, so a hung loop whose HTTP thread still answers
+    # reads as stale to the pod aggregator
+    vitals: Dict[str, Any] = {"role": "train", "round": start_round,
+                              "status": "ok", "loss": None,
+                              "worker": machine, "round_s": None,
+                              "data_wait_s": None,
+                              "beat_ts": round(time.time(), 3)}
+    # the servers and the side group are released in the loop's finally
+    status_srv = pod_srv = None
+    if cfg.status_port is not None and local_rank == 0:
+        try:
+            status_srv = StatusServer(
+                cfg.status_port, registry, host=cfg.status_host,
+                healthz=lambda: (vitals["status"] not in ("nonfinite",),
+                                 dict(vitals)),
+                status=lambda: {**vitals,
+                                "rollbacks": (monitor.rollbacks
+                                              if monitor else 0),
+                                "phase_means": timers.summary()})
+        except OSError as e:
+            # a taken port degrades observability, never training
+            warnings.warn(f"status server failed to bind port "
+                          f"{cfg.status_port}: {e}; continuing without",
+                          RuntimeWarning)
+        else:
+            cfg.status_address = status_srv.address
+            log.log(f"train status server at http://"
+                    f"{status_srv.address[0]}:{status_srv.address[1]}"
+                    f"/metrics")
+    if cfg.pod_port is not None and cfg.pod_dir and rank == 0:
+        try:
+            # one staleness rule: the aggregator's down verdicts use the
+            # threshold the membership controller evicts on
+            pod_srv = obs_pod.PodAggregator(
+                pod_dir=cfg.pod_dir,
+                stale_after_s=(elastic_cfg.stale_after_s
+                               if elastic_cfg is not None else 120.0)
+            ).serve(cfg.pod_port, host=cfg.status_host)
+        except OSError as e:
+            warnings.warn(f"pod status server failed to bind port "
+                          f"{cfg.pod_port}: {e}; continuing without",
+                          RuntimeWarning)
+        else:
+            cfg.pod_address = pod_srv.address
+            log.log(f"pod status server at http://{pod_srv.address[0]}:"
+                    f"{pod_srv.address[1]}/pod/status")
     if cfg.telemetry:
         trainer.phase_timers = timers  # the h2d / dispatch split
     # read on the MAIN thread: the policy is thread-local
@@ -398,6 +563,121 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
     # the highest round already run: rounds at or below it are retries,
     # where fault injection does not fire
     high_water = start_round - 1
+
+    def beat(step: int, status: str, force: bool = False, **kv) -> None:
+        """Rewrite this rank's heartbeats (best-effort: a full disk must
+        degrade observability, not kill the run)."""
+        rollbacks = monitor.rollbacks if monitor is not None else 0
+        if elastic_cfg is not None:
+            # the epoch rides every beat, so the pod view sees resizes
+            kv.setdefault("membership_epoch", member_view["epoch"])
+            kv.setdefault("n_members", member_view["n_members"])
+        for hb, extra in ((heartbeat, kv),
+                          (pod_hb, {**kv, "worker": machine,
+                                    "n_workers": n_machines,
+                                    "round_s": vitals.get("round_s"),
+                                    "data_wait_s": vitals.get(
+                                        "data_wait_s")})):
+            if hb is None:
+                continue
+            try:
+                hb.beat(step, status=status, force=force,
+                        rollbacks=rollbacks, **extra)
+            except OSError as e:
+                warnings.warn(f"heartbeat write failed: {e}", RuntimeWarning)
+
+    def expand_tau(by_worker: Optional[Dict[str, int]]):
+        """Per-worker τ budgets -> one per rank. Over several machines a
+        rank's owner is its machine; on one machine the members own
+        contiguous blocks of ranks in sorted-id order (the JAX package's
+        single-process rule). Unknown owners run the full τ."""
+        if not by_worker:
+            return None
+        if n_machines > 1:
+            return [by_worker.get(str(r // local_size), cfg.tau)
+                    for r in range(n)]
+        order = sorted(membership.members, key=worker_sort_key)
+        m = max(1, len(order))
+        return [by_worker.get(order[min(r * m // n, m - 1)], cfg.tau)
+                for r in range(n)]
+
+    def agree(rnd: int, bootstrap: bool = False) -> Dict[str, Any]:
+        """Rank 0's membership decision at this boundary, on every rank:
+        {"event": MembershipEvent or None, "tau": per-rank budgets or
+        None, "epoch", "members"}. Rank 0 polls (the first poll seeds the
+        membership); the decision is broadcast on the gloo side group at
+        every boundary, whatever the poll's rate limit says, so every
+        rank runs the same collectives and takes the same branch."""
+        decision = None
+        if membership is not None:
+            ev = membership.poll(rnd, force=bootstrap)
+            tau = (expand_tau(membership.tau_by_worker(cfg.tau))
+                   if ev is None and not bootstrap and trainer.elastic_tau
+                   else None)
+            decision = {"event": ev, "tau": tau, "epoch": membership.epoch,
+                        "members": tuple(sorted(membership.members,
+                                                key=worker_sort_key))}
+        if side is not None:
+            box = [decision]
+            dist.broadcast_object_list(box, src=0, group=side)
+            decision = box[0]
+        member_view.update(epoch=decision["epoch"],
+                           n_members=len(decision["members"]))
+        return decision
+
+    def apply_resize(state, ev, rnd: int):
+        """A membership change at this τ boundary: the JAX package's
+        relaunch branches (module docstring). Always raises:
+        ElasticRelaunch (exit 75), or TrainingHealthError below
+        min_workers."""
+        flush_deferred()
+        drop_pending()  # wait out a running prep: never race the source
+        what = (f"membership epoch {ev.epoch}: {ev.n_workers} worker(s) "
+                f"(dead {list(ev.dead)}, joined {list(ev.joined)})")
+        below = ev.n_workers < max(1, elastic_cfg.min_workers)
+        vitals["membership_epoch"] = ev.epoch
+        if n_machines > 1:
+            # no boundary save: the relaunch resumes from the newest
+            # periodic step (the JAX package's multi-host branch)
+            log.event(rnd, "resize", epoch=ev.epoch, dead=list(ev.dead),
+                      joined=list(ev.joined), reasons=ev.reasons,
+                      n_workers=ev.n_workers, relaunch=True)
+            beat(rnd, "resize", force=True, dead=list(ev.dead),
+                 joined=list(ev.joined))
+            if below:
+                raise TrainingHealthError(
+                    f"elastic: the world fell to {ev.n_workers} worker(s) "
+                    f"(dead: {list(ev.dead)}), below min_workers="
+                    f"{elastic_cfg.min_workers}. Resume from the newest "
+                    f"periodic checkpoint under {ckdir!r} once capacity "
+                    f"returns.")
+            log.log(f"elastic: {what}; exit 75 to relaunch at the new "
+                    f"size from the newest periodic checkpoint", rnd)
+            raise ElasticRelaunch(f"{what}; several machines relaunch at "
+                                  f"the new size")
+        ckpt_barrier()
+        with timers.phase("checkpoint"):
+            _save_checkpoint(cfg, trainer, state, rnd, source=source,
+                             last_round=rnd - 1, local_size=local_size,
+                             anomalous=(monitor is not None and
+                                        monitor.recently_anomalous(rnd)),
+                             health_state=_health_state(retry, lr_scale,
+                                                        monitor))
+        log.event(rnd, "resize", epoch=ev.epoch, dead=list(ev.dead),
+                  joined=list(ev.joined), reasons=ev.reasons,
+                  n_workers=ev.n_workers)
+        beat(rnd, "resize", force=True, dead=list(ev.dead),
+             joined=list(ev.joined))
+        if below:
+            raise TrainingHealthError(
+                f"elastic: the world fell to {ev.n_workers} worker(s) "
+                f"(dead: {list(ev.dead)}), below min_workers="
+                f"{elastic_cfg.min_workers}. A verified checkpoint at round "
+                f"{rnd} is saved under {ckdir!r} — relaunch with capacity "
+                f"to continue.")
+        log.log(f"elastic: {what}; checkpointed round {rnd}, exit 75 to "
+                f"relaunch at the new size", rnd)
+        raise ElasticRelaunch(f"{what}; checkpointed round {rnd}")
 
     def prepare_round(rnd: int, retry_: int, first_pass: bool):
         """Round `rnd`'s batches for this rank, placed on the device when
@@ -455,6 +735,14 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             kv.update({f"t_{k}_ms": round(v * 1e3, 3)
                        for k, v in breakdown.items()})
             kv["h2d_bytes"] = h2d_bytes
+            # the straggler inputs: /status, the gauges, the pod beat
+            vitals["round_s"] = round(breakdown["round"], 6)
+            vitals["data_wait_s"] = round(breakdown["data"], 6)
+            if g_round_s is not None:
+                g_round_s.set(breakdown["round"])
+                g_wait_s.set(breakdown["data"])
+        if dev_tel is not None:
+            dev_tel.sample()  # the card's memory at the flush cadence
         cls = None
         if monitor is not None:
             cls = monitor.observe(rnd_, loss, grad_norm=kv.get("grad_norm"),
@@ -467,6 +755,15 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                 + (f"  HEALTH: {cls}" if cls not in (None, "ok") else ""),
                 rnd_)
         log.metrics(rnd_, **kv)
+        finite = bool(np.isfinite(loss))
+        vitals.update(round=rnd_, loss=loss if finite else None,
+                      status=cls or "ok", beat_ts=round(time.time(), 3))
+        if g_round is not None:
+            g_round.set(rnd_)
+            if finite:
+                g_loss.set(loss)
+        beat(rnd_, cls or "ok", force=cls not in (None, "ok"),
+             last_loss=loss if finite else None)
         if cls == "spike" and not monitor.rollback_needed:
             log.event(rnd_, "spike_skip", loss=loss)
         last_flush_ms[0] = (time.perf_counter() - t_flush0) * 1e3
@@ -533,7 +830,8 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                 f"recover.")
         flat, ck_round, extra = found
         try:
-            state = trainer.state_from_checkpoint(flat, extra)
+            # the target may predate an elastic relaunch (another size)
+            state = trainer.state_from_checkpoint(flat, extra, policy)
         except ValueError as e:
             raise TrainingHealthError(
                 f"training health: rollback target step {ck_round} cannot "
@@ -545,6 +843,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         log.event(ck_round, "rollback", reason=reason, target_step=ck_round,
                   rollbacks=monitor.rollbacks, retry=retry,
                   lr_scale=round(lr_scale, 6))
+        beat(ck_round, "rollback", force=True, reason=reason)
         return state, ck_round
 
     # per-round deltas of the accumulating phase timers
@@ -558,11 +857,44 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
 
     rnd = start_round
     loop_completed = False
+    tau_vec = None  # this round's per-rank τ budgets (tau_adapt)
+    t_member = 0.0  # this round's boundary agreement, for the breakdown
     try:
+        if elastic_cfg is not None:
+            # every machine beats, then rank 0 seeds the membership from
+            # the prefix: a member's first flush cannot race the seeding
+            beat(start_round, "ok", force=True)
+            if side is not None:
+                dist.barrier(group=side)
+            seeded = agree(start_round, bootstrap=True)
+            if len(seeded["members"]) < max(1, elastic_cfg.min_workers):
+                # a relaunch below min_workers halts here, loudly, rather
+                # than bouncing between relaunches
+                raise TrainingHealthError(
+                    f"elastic: launched with {len(seeded['members'])} "
+                    f"worker(s), below min_workers="
+                    f"{elastic_cfg.min_workers} — refusing to start; the "
+                    f"newest verified checkpoint resumes once capacity "
+                    f"returns.")
+            vitals["membership_epoch"] = seeded["epoch"]
+            log.log(f"elastic membership: {list(seeded['members'])} "
+                    f"({len(seeded['members'])} worker(s) over "
+                    f"{n_machines} machine(s); stale_after="
+                    f"{elastic_cfg.stale_after_s}s min_workers="
+                    f"{elastic_cfg.min_workers}; rank 0 decides)")
         while rnd < cfg.max_rounds:
             if monitor is not None and monitor.rollback_needed:
                 state, rnd = recover(state)
                 continue
+            if elastic_cfg is not None:
+                # the τ boundary: every rank's params are synchronized, so
+                # this is the one safe point to change the world
+                t0 = time.perf_counter()
+                decision = agree(rnd)
+                t_member = time.perf_counter() - t0
+                if decision["event"] is not None:
+                    apply_resize(state, decision["event"], rnd)
+                tau_vec = decision["tau"]
             if test_ds is not None and cfg.eval_every and \
                     rnd % cfg.eval_every == 0:
                 flush_deferred()  # keep the log round-ordered
@@ -586,8 +918,10 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             # a retried round keys its dropout masks anew as well
             key = (cfg.seed, rnd) + ((retry,) if retry else ())
             with timers.phase("train_round"):
+                tr_kw = ({} if tau_vec is None
+                         else {"tau_by_worker": tau_vec})
                 state, loss = trainer.train_round(state, batches, key,
-                                                  lr_scale=lr_scale)
+                                                  lr_scale=lr_scale, **tr_kw)
                 del batches  # the slot or buffers go back with the round
                 scalars = _record_scalars(
                     loss, probe(state) if probe else None,
@@ -606,6 +940,10 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                              "ckpt_fetch": phase_delta("checkpoint"),
                              "prep": info["prep_s"],
                              "h2d_bytes": trainer.h2d_bytes}
+                if elastic_cfg is not None:
+                    breakdown["member"] = t_member
+            if c_rounds is not None:
+                c_rounds.inc()
             deferred.append((rnd, scalars, round_s, breakdown))
             if ckdir and cfg.checkpoint_every and \
                     (rnd + 1) % cfg.checkpoint_every == 0:
@@ -660,17 +998,26 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                 log.log(f"round collector failed during abort: {e}")
             finally:
                 collector.shutdown(wait=True)
-        if ck_writer is not None:
-            # a running write always completes; on the normal path its
-            # failure raises here, on an aborted one it must not mask
-            # the exception already propagating
-            try:
-                ck_writer.close(wait=True)
-            except Exception as e:
-                if loop_completed:
-                    raise
-                log.log(f"background checkpoint write failed during "
-                        f"abort: {e}")
+        try:
+            if ck_writer is not None:
+                # a running write always completes; on the normal path
+                # its failure raises here, on an aborted one it must not
+                # mask the exception already propagating
+                try:
+                    ck_writer.close(wait=True)
+                except Exception as e:
+                    if loop_completed:
+                        raise
+                    log.log(f"background checkpoint write failed during "
+                            f"abort: {e}")
+        finally:
+            # the ports unbind even when the writer's failure re-raises
+            if status_srv is not None:
+                status_srv.stop()
+            if pod_srv is not None:
+                pod_srv.stop()
+            if side is not None:
+                dist.destroy_process_group(side)
     if ckdir and start_round < cfg.max_rounds:
         # start_round >= max_rounds: the loop ran no round, and the
         # restored step is already the final state (a save now would also
@@ -691,6 +1038,10 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         log.log(f"health summary: {monitor.counts['spike']} spikes, "
                 f"{monitor.counts['nonfinite']} nonfinite rounds, "
                 f"{monitor.rollbacks} rollbacks")
+    beat(rnd, "done", force=True)
+    for hb in (heartbeat, pod_hb):
+        if hb is not None:
+            hb.flush()  # bounded wait: the done beat lands on a bucket
     log.log("done")
     return state
 

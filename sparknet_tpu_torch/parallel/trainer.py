@@ -50,10 +50,21 @@ the state takes the JAX package's replica layout: every leaf has a leading
 [world] axis, params in the JAX layouts (conv HWIO, inner product (in,
 out)) and replicated, momentum gathered per rank (row r is rank r's own,
 never averaged), `it` as [world] int32. Each package restores the other's
-checkpoints.
+checkpoints. A step of another world size restores through `adapt_state`
+(the elastic resume): the params are row 0 and exact, and each rank's
+momentum is reconstructed from all the old rows (`reduce_momentum_rows`).
 
-Not ported yet: elastic τ, tensor parallelism and `resized`; asking for
-any of them raises NotImplementedError.
+Per-worker τ (`elastic_tau=True`; the JAX package's masked round): with
+`train_round(..., tau_by_worker=[τ_r per rank])` rank r runs its first
+τ_r steps and skips the rest — where the JAX package runs them as masked
+no-ops — with the same per-step dropout generators; `it` still advances
+by the nominal τ, the loss is each rank's sum(losses) / τ_r averaged over
+the ranks, and the grad norm takes each rank's worst executed step. A full
+vector runs the unmasked round.
+
+Not ported: tensor parallelism (raises NotImplementedError), and `resized`
+— a port process drives one card and cannot change its world in place, so
+a membership change relaunches the run (`parallel/elastic.py`).
 """
 from __future__ import annotations
 
@@ -137,8 +148,9 @@ class ParallelTrainer:
                              f"or 'sync_sgd'")
         if mode == "sync_sgd" and tau != 1:
             raise ValueError("sync_sgd averages every step; tau must be 1")
-        if elastic_tau:
-            raise NotImplementedError("elastic τ is not ported yet")
+        if elastic_tau and mode != "local_sgd":
+            raise ValueError("elastic_tau (per-worker local steps) only "
+                             "makes sense in local_sgd mode")
         if tp != 1:
             raise NotImplementedError("tensor parallelism is not ported yet")
         if solver_cfg.iter_size != 1:
@@ -156,6 +168,7 @@ class ParallelTrainer:
         self.loss_blob = loss_blob
         self.acc_blob = acc_blob
         self.compute_health = bool(compute_health)
+        self.elastic_tau = bool(elastic_tau)
         self.ops = ops or OpsImpl()
         #: {"grad_norm", "nonfinite", "nonfinite_by_worker"} of the last
         #: round as device tensors, fresh each round (None when
@@ -241,34 +254,85 @@ class ParallelTrainer:
         return {"params": params, "momentum": momentum,
                 "it": np.full((world,), state.it, np.int32)}
 
-    def _check_topology(self, flat: Mapping[str, Any],
-                        extra: Mapping[str, Any]) -> None:
-        """Raise ValueError unless the checkpoint was written by this
-        topology: device count (from `extra`, else the leading axis of
-        `it`), tp, layout and state sharding (the reference's
-        `_restore_state` test)."""
+    def saved_world(self, flat: Mapping[str, Any],
+                     extra: Mapping[str, Any]) -> int:
+        """The world size that wrote a checkpoint (from `extra`, else the
+        leading axis of `it`); raise ValueError unless the rest of its
+        topology — tp, layout, state sharding — is this trainer's (the
+        reference's `_restore_state` test; those trainers are ROADMAP
+        A11)."""
         saved = extra.get("n_devices")
         if saved is None and "it" in flat and np.ndim(flat["it"]):
             saved = np.shape(flat["it"])[0]
-        saved_topo = (int(saved or self.group.size), int(extra.get("tp", 1)),
-                      extra.get("layout", "replica"),
-                      extra.get("state_sharding", "replicated"))
-        here = (self.group.size, 1, "replica", "replicated")
-        if saved_topo != here:
+        rest = (int(extra.get("tp", 1)), extra.get("layout", "replica"),
+                extra.get("state_sharding", "replicated"))
+        if rest != (1, "replica", "replicated"):
             raise ValueError(
-                f"checkpoint topology (n_devices, tp, layout, "
-                f"state_sharding) = {saved_topo} != this run's {here}; "
-                f"elastic resize (adapt_state) is not ported yet — resume "
-                f"on the original topology")
+                f"checkpoint topology (tp, layout, state_sharding) = {rest} "
+                f"!= this run's (1, 'replica', 'replicated'): the tensor-"
+                f"parallel and NamedSharding trainers are not ported "
+                f"(ROADMAP A11)")
+        return int(saved or self.group.size)
 
     def state_from_checkpoint(self, flat: Mapping[str, Any],
-                              extra: Optional[Mapping[str, Any]] = None
+                              extra: Optional[Mapping[str, Any]] = None,
+                              momentum_policy: str = "norm_rescale"
                               ) -> TrainState:
         """A restored flat map (`checkpoint.restore_flat`, either package's)
-        -> this rank's TrainState: the params row of this rank, its own
-        momentum row and `it`. The topology must be this run's."""
-        self._check_topology(flat, extra or {})
-        r = self.group.rank
+        -> this rank's TrainState. A step of this world size restores the
+        params row of this rank, its own momentum row and `it`, as
+        written; a step of another world size takes `adapt_state` with
+        `momentum_policy` (the elastic resume). Another tp, layout or
+        state sharding raises ValueError."""
+        self.saved_world(flat, extra or {})
+        return self.adapt_state(flat, momentum_policy=momentum_policy)
+
+    def adapt_state(self, flat: Mapping[str, Any], old_tp: int = 1,
+                    momentum_policy: str = "norm_rescale",
+                    old_layout: str = "replica") -> TrainState:
+        """The elastic resume (the JAX package's `adapt_state`): this
+        rank's TrainState from a replica-layout step written by another
+        world size. The params are row 0, exact: after the round's
+        average every row is the same model. Momentum is rank-local
+        state with no continuity across a topology change, so every rank
+        takes the same reconstruction from all the old rows,
+        `reduce_momentum_rows(rows, momentum_policy)` in numpy:
+        "norm_rescale" (the mean rescaled to the rows' mean norm),
+        "average" or "zero". A step of this world size restores each
+        rank's own row as written, whatever the policy. `it` is row 0's.
+
+        `old_layout="logical"` (the NamedSharding trainer's steps) and
+        `old_tp > 1` raise NotImplementedError: those trainers are ROADMAP
+        A11."""
+        if momentum_policy not in ("average", "zero", "norm_rescale"):
+            raise ValueError(f"unknown momentum_policy {momentum_policy!r}")
+        if old_layout != "replica" or old_tp != 1:
+            raise NotImplementedError(
+                f"adapt_state of a {old_layout!r}-layout step at tp="
+                f"{old_tp}: the NamedSharding and tensor-parallel trainers "
+                f"are not ported (ROADMAP A11)")
+        old_n = int(np.shape(flat["it"])[0]) if np.ndim(flat["it"]) else 1
+        if old_n == self.group.size:
+            r = self.group.rank
+            return self._state_from_rows(
+                flat, lambda kind, rows: rows[r],
+                int(np.asarray(flat["it"]).reshape(-1)[r]))
+
+        def pick(kind, rows):
+            if kind == "params":
+                return rows[0]
+            if isinstance(rows, torch.Tensor):  # a bfloat16 momentum
+                return torch.from_numpy(reduce_momentum_rows(
+                    rows.float().numpy(), momentum_policy)).to(rows.dtype)
+            return reduce_momentum_rows(np.asarray(rows), momentum_policy)
+
+        return self._state_from_rows(
+            flat, pick, int(np.asarray(flat["it"]).reshape(-1)[0]))
+
+    def _state_from_rows(self, flat: Mapping[str, Any], pick, it: int
+                         ) -> TrainState:
+        """A TrainState from a replica-layout flat map: `pick(kind,
+        [rows, *JAX shape])` gives each leaf's one JAX-layout value."""
         types = {l.name: l.type for l in self.net.spec.layers}
         vdt = precision.DTYPES[self.solver.cfg.velocity_dtype]
         rows = {}
@@ -278,7 +342,8 @@ class ParallelTrainer:
                 if f"params/{l}/{p}" not in flat:
                     raise ValueError(f"checkpoint missing leaf "
                                      f"'params/{l}/{p}'")
-                rows[l][p] = np.asarray(flat[f"params/{l}/{p}"])[r]
+                rows[l][p] = pick("params",
+                                  np.asarray(flat[f"params/{l}/{p}"]))
         params = params_from_jax(self.net, rows, torch.device("cpu"))
         momentum: ParamTree = {}
         for lname, lp in params.items():
@@ -287,7 +352,7 @@ class ParallelTrainer:
                 key = f"momentum/{lname}/{pname}"
                 if key not in flat:
                     raise ValueError(f"checkpoint missing leaf {key!r}")
-                m = flat[key][r]
+                m = pick("momentum", flat[key])
                 m = m if isinstance(m, torch.Tensor) else torch.from_numpy(
                     np.ascontiguousarray(m))
                 if m.dtype != vdt:
@@ -302,7 +367,6 @@ class ParallelTrainer:
                     raise ValueError(f"{key}: shape {tuple(m.shape)} != net "
                                      f"{tuple(w.shape)} (port layout)")
                 momentum[lname][pname] = m
-        it = int(np.asarray(flat["it"]).reshape(-1)[r])
         return self.state_from_params(params, momentum, it)
 
     # -- one round -----------------------------------------------------------
@@ -436,7 +500,8 @@ class ParallelTrainer:
         return out
 
     def train_round(self, state: TrainState, batches: Mapping[str, Any],
-                    rng: Union[int, Sequence[int]], lr_scale: float = 1.0
+                    rng: Union[int, Sequence[int]], lr_scale: float = 1.0,
+                    tau_by_worker: Optional[Sequence[int]] = None
                     ) -> Tuple[TrainState, torch.Tensor]:
         """One outer round on this rank: τ local steps on its own
         [tau, local_batch, ...] batches (host arrays, or a round placed by
@@ -444,20 +509,40 @@ class ParallelTrainer:
         passes (seed, round)); step t draws its dropout masks from
         (rng..., rank, t). Returns (state, mean loss) — the state updated
         in place; the health scalars land in `last_health`. On the card
-        the call returns once the round is queued."""
+        the call returns once the round is queued.
+
+        `tau_by_worker` (elastic_tau trainers only): one local-step budget
+        per rank, clipped to [1, tau]; this rank runs its first budget's
+        steps (module docstring). None = full τ everywhere."""
+        my_tau = None
+        if self.elastic_tau:
+            if tau_by_worker is not None:
+                vec = [int(min(self.tau, max(1, t))) for t in tau_by_worker]
+                if len(vec) != self.group.size:
+                    raise ValueError(
+                        f"tau_by_worker has {len(vec)} entries for "
+                        f"{self.group.size} ranks")
+                my_tau = vec[self.group.rank]
+        elif tau_by_worker is not None:
+            raise ValueError("tau_by_worker requires a trainer built with "
+                             "elastic_tau=True")
         timers = self.phase_timers
         if timers is None:
             placed = self.place_batches(batches)
-            return self._round(state, placed, rng, lr_scale)
+            return self._round(state, placed, rng, lr_scale, my_tau)
         with timers.phase("h2d"):
             placed = self.place_batches(batches)
         with timers.phase("dispatch"):
-            return self._round(state, placed, rng, lr_scale)
+            return self._round(state, placed, rng, lr_scale, my_tau)
 
     def _round(self, state: TrainState, placed: PlacedBatches,
-               rng: Union[int, Sequence[int]], lr_scale: float
+               rng: Union[int, Sequence[int]], lr_scale: float,
+               my_tau: Optional[int] = None
                ) -> Tuple[TrainState, torch.Tensor]:
         keys = (rng,) if isinstance(rng, int) else tuple(rng)
+        # this rank's executed steps: a budget below τ skips the rest
+        n_steps = self.tau if my_tau is None else my_tau
+        it0 = state.it
         self.h2d_bytes = placed.nbytes
         if placed.ready is not None:
             compute = torch.cuda.current_stream(self.device)
@@ -468,7 +553,7 @@ class ParallelTrainer:
         sstate = SolverState(momentum=state.momentum, it=state.it)
         g = self.group
         losses, grad_sqs = [], []
-        for t in range(self.tau):
+        for t in range(n_steps):
             batch = {k: v[t] for k, v in placed.items()}
             gen = seeded_generator(keys + (g.rank, t))
             loss, grads = value_and_grad(loss_fn, state.params, batch, gen)
@@ -483,7 +568,9 @@ class ParallelTrainer:
             self.solver.update(state.params, sstate, grads,
                                lr_scale=lr_scale)
             losses.append(loss.float())
-        state.it = sstate.it
+        # the schedule clock advances by the nominal τ on every rank: the
+        # lr policy must not diverge across the group
+        state.it = it0 + self.tau
         losses = torch.stack(losses)
         with torch.no_grad():
             if self.compute_health:
@@ -495,7 +582,9 @@ class ParallelTrainer:
                                     state.flat_momentum.float()).all())
             if self.mode == "local_sgd":
                 g.all_reduce_mean_(state.flat_params)
-            parts = [losses.mean()[None]]
+            # a budget below τ: the mean over the steps this rank ran
+            parts = [(losses.mean() if n_steps == self.tau
+                      else losses.sum() / max(n_steps, 1))[None]]
             if self.compute_health:
                 finite_avg = torch.isfinite(state.flat_params).all()
                 row = torch.zeros(g.size, device=self.device)
@@ -553,7 +642,35 @@ class ParallelTrainer:
         return float(tot[0] / tot[1])
 
     def resized(self, n_devices: int) -> "ParallelTrainer":
-        raise NotImplementedError("elastic resize is not ported yet")
+        """The JAX package's live resize has no counterpart: a port process
+        drives one card, and a torch process group cannot drop or add a
+        member in place. A membership change relaunches the run instead
+        (`ElasticRelaunch`, exit 75) and the relaunched world restores
+        through `state_from_checkpoint` / `adapt_state`."""
+        raise NotImplementedError(
+            f"resized({n_devices}): a port process drives one card and "
+            f"cannot change its world in place; a membership change "
+            f"relaunches the run (ElasticRelaunch, exit 75), which resumes "
+            f"at the new size through adapt_state")
+
+
+def reduce_momentum_rows(rows: np.ndarray, policy: str) -> np.ndarray:
+    """Reconstruct one momentum from k per-rank velocity rows — the
+    elastic resume's reconstruction (a copy of the JAX package's, numpy).
+    f32 accumulator: a bf16 velocity must not be averaged in bf16."""
+    avg = rows.mean(axis=0, dtype=np.float32)
+    if policy == "zero":
+        return np.zeros_like(avg).astype(rows.dtype)
+    if policy == "norm_rescale":
+        # averaging k partially decorrelated velocities shrinks the norm
+        # ~1/sqrt(k); rescale the mean back to the mean per-rank norm so
+        # the first steps after the resume keep their step size
+        target = float(np.mean([np.linalg.norm(
+            r.astype(np.float32)) for r in rows]))
+        cur = float(np.linalg.norm(avg))
+        if cur > 0:
+            avg = avg * (target / cur)
+    return avg.astype(rows.dtype)
 
 
 def _find_accuracy_blob(net: CompiledNet) -> str:

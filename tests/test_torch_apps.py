@@ -1,5 +1,6 @@
 """The port's training entry points: the CIFAR app's command line, `train()`
-against the JAX package's `train()`, and the settings the port refuses.
+against the JAX package's `train()`, the settings the port refuses, and
+the ones it took up since it refused them.
 
 `cifar.write_synthetic` makes the CIFAR-10 binary files both apps read.
 The two `train()`s get the same data and the same config (n_devices = 1
@@ -100,10 +101,8 @@ def test_train_matches_the_jax_train(cifar_dir, tmp_path, monkeypatch):
 REFUSED = {
     "checkpoint_sharded=on": dict(checkpoint_dir="ck",
                                   checkpoint_sharded="on"),
-    "elastic": dict(elastic=ElasticConfig(enabled=True)),
     "trainer_impl": dict(trainer_impl="named"),
     "state_sharding": dict(state_sharding="momentum"),
-    "heartbeat_path": dict(heartbeat_path="hb.json"),
 }
 
 
@@ -115,6 +114,34 @@ def test_unported_settings_that_change_results_raise(what, tmp_path):
         train(cfg, zoo.cifar10_quick(batch=2), ds, device="cpu",
               logger=Logger(echo=False))
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("what", ["elastic", "heartbeat_path"])
+def test_settings_ported_since_the_refusals_act(what, tmp_path):
+    """`elastic` and `heartbeat_path` were refused until the port had
+    membership and heartbeats: now a run with them trains and writes
+    them."""
+    kw = dict(heartbeat_path=str(tmp_path / "hb.json"))
+    if what == "elastic":
+        kw = dict(elastic=ElasticConfig(enabled=True, poll_interval_s=0.0),
+                  pod_dir=str(tmp_path / "pod"),
+                  checkpoint_dir=str(tmp_path / "ck"))
+    cfg = RunConfig(workdir=str(tmp_path), max_rounds=2, tau=1,
+                    local_batch=2, eval_every=0, **kw)
+    ds = ArrayDataset({"data": torch.zeros(8, 3, 32, 32).numpy(),
+                       "label": torch.zeros(8, 1, dtype=torch.int32).numpy()})
+    log = Logger(str(tmp_path / "l.txt"), echo=False)
+    train(cfg, zoo.cifar10_quick(batch=2), ds, device="cpu", logger=log)
+    log.close()
+    assert not torch.distributed.is_initialized()
+    path = (str(tmp_path / "hb.json") if what == "heartbeat_path" else
+            str(tmp_path / "pod" / "worker-000.heartbeat.json"))
+    beat = json.load(open(path))
+    assert (beat["role"], beat["status"], beat["step"]) == \
+        ("train", "done", 2)
+    if what == "elastic":
+        assert beat["membership_epoch"] == 0 and beat["n_members"] == 1
+        assert "elastic membership: ['0']" in open(tmp_path / "l.txt").read()
 
 
 @pytest.mark.parametrize("knob,value", [("lrn_impl", "fused"),

@@ -28,7 +28,8 @@ from sparknet_tpu_torch.data.cifar import write_synthetic
 from sparknet_tpu_torch.model.net import CompiledNet, params_to_jax
 from sparknet_tpu_torch.obs.registry import MetricsRegistry
 from sparknet_tpu_torch.parallel.mesh import DataGroup
-from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+from sparknet_tpu_torch.parallel.trainer import (ParallelTrainer,
+                                                 reduce_momentum_rows)
 from sparknet_tpu_torch.solver import SolverConfig
 from sparknet_tpu_torch.utils import checkpoint as ckpt
 
@@ -320,12 +321,28 @@ def test_jax_step_loads_into_each_rank_exactly(jax_steps, world):
 
 
 def test_a_checkpoint_of_another_topology_names_elastic_resize(jax_steps):
+    """Another world size takes the elastic resize (`adapt_state`): the
+    params of row 0 exactly, every rank the same momentum
+    reconstruction. Another tp or layout still raises, naming the
+    trainers that are not ported (ROADMAP A11)."""
     flat, _, extra = ckpt.restore_flat(jax_steps[2])
-    with pytest.raises(ValueError, match="elastic resize"):
-        _trainer(0, 1, batch=4).state_from_checkpoint(flat, extra)
-    with pytest.raises(ValueError, match="elastic resize"):
+    tr = _trainer(0, 1, batch=4)
+    st = tr.state_from_checkpoint(flat, extra)
+    assert st.it == 4
+    conv = {kind: params_to_jax(tr.net, getattr(st, kind))
+            for kind in ("params", "momentum")}
+    for l, lp in conv["params"].items():
+        for p, a in lp.items():
+            np.testing.assert_array_equal(a, flat[f"params/{l}/{p}"][0])
+            np.testing.assert_array_equal(
+                conv["momentum"][l][p], reduce_momentum_rows(
+                    flat[f"momentum/{l}/{p}"], "norm_rescale"))
+    with pytest.raises(ValueError, match="A11"):
         _trainer(0, 2, batch=4).state_from_checkpoint(
             flat, dict(extra, layout="logical"))
+    with pytest.raises(ValueError, match="A11"):
+        _trainer(0, 1, batch=4).state_from_checkpoint(flat,
+                                                      dict(extra, tp=2))
     with pytest.raises(ValueError, match="velocity_dtype"):
         _trainer(0, 2, velocity="bfloat16", batch=4).state_from_checkpoint(
             flat, extra)

@@ -202,11 +202,18 @@ def test_unported_trainer_options_raise(tmp_path):
     g = init_data_group("cpu", store_path=str(tmp_path / "s"), rank=0,
                         world_size=1)
     try:
-        with pytest.raises(NotImplementedError, match="elastic"):
-            ParallelTrainer(net, SolverConfig(), g, elastic_tau=True)
+        # elastic τ is ported (test_torch_elastic.py); only its sync_sgd
+        # combination is refused, as the JAX package refuses it
+        assert ParallelTrainer(net, SolverConfig(), g,
+                               elastic_tau=True).elastic_tau
+        with pytest.raises(ValueError, match="local_sgd"):
+            ParallelTrainer(net, SolverConfig(), g, tau=1, mode="sync_sgd",
+                            elastic_tau=True)
         with pytest.raises(NotImplementedError, match="tensor parallel"):
             ParallelTrainer(net, SolverConfig(), g, tp=2)
-        with pytest.raises(NotImplementedError, match="resize"):
+        # a port process cannot change its world: a membership change
+        # relaunches the run instead of resizing the trainer
+        with pytest.raises(NotImplementedError, match="relaunch"):
             ParallelTrainer(net, SolverConfig(), g).resized(2)
         with pytest.raises(ValueError, match="tau must be 1"):
             ParallelTrainer(net, SolverConfig(), g, tau=2, mode="sync_sgd")
