@@ -2,7 +2,8 @@
 """Chip smoke of the PyTorch/CUDA port: does the port serve and train
 CaffeNet on the card, through the ImageNet app from JPEG shards too,
 cached and streamed, from a directory and from a bucket, watched by its
-telemetry, and through the loss of a worker?
+telemetry, through the loss of a worker, and behind an HTTP port that
+hot-reloads a training step under traffic?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -181,7 +182,36 @@ Phases, in order; any failure exits non-zero before the result line:
    round_s against phase 4's, every save's seconds and bytes (the
    boundary save marked), the 4-row step's bytes and restore seconds, and
    one `/metrics` scrape over HTTP in ms beside the registry's own render.
-9. The kernels line, `{"kernels": [...]}`, then the result line
+9. Serve over HTTP: the port's serving replica on the card — full-width
+   CaffeNet (crop 227, 1000 classes) with seeded weights, float32,
+   `max_batch=128`, buckets (1, 8, 64, 128), outputs ("prob",), a
+   `checkpoint_dir` polled every 0.2 s, `status_port=0` and a heartbeat,
+   behind an `HttpFrontend` on port 0 with a `TenantAdmission` door.
+   Launch counters are zeroed before the server starts and read after its
+   traffic. 8 keep-alive client threads send npz requests through
+   `http_infer`: a warm-up, a steady pass of 8 x 64 (img/s and the
+   client-side p50/p99 beside phase 3's in-process img/s), a traced pass
+   (request tracing on: each stage's mean ms on the server), then traffic
+   during which step 1 — the weights of seed 1 in the JAX package's
+   monolithic format, through the port's checkpoint store — is written,
+   installed, and a step 2 with one byte of its arrays flipped is
+   published and rejected. Checks: every response 200 with a step, at
+   least 1024 requests in all; each client's steps never decrease; after
+   the swap a fixed request's prob `torch.equal` to the seed-1 net's
+   forward at bucket 1; step 2 rejected as corrupt (swaps_total
+   {outcome="rejected"} 1, the heartbeat's rollbacks 1, serving on step
+   1); /healthz 200 on the status server and the frontend; /metrics with
+   the serve families, `transport="http"`, the swap counters and
+   `sparknet_serve_model_freshness_seconds`; lrn_fwd 2 launches per
+   traffic forward plus 2 per canary forward, all float32. Then a second
+   server with `quant="int8"` installs the same step: its parity canary
+   passes, its prob is within QuantConfig's rtol/atol of the f32 lane's on
+   the same requests, and its lrn_fwd launches are bfloat16 (2 per traffic
+   and quantized canary forward; the parity reference forward is f32).
+   Prints the connections opened, commit-to-install seconds, the canary
+   ms, freshness_s at install, and the f32 and int8 bucket-128 forward
+   times (wall and device).
+10. The kernels line, `{"kernels": [...]}`, then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -205,6 +235,12 @@ LRN_SHAPES = {"norm1": (27, 27, 96), "norm2": (13, 13, 256)}
 LRN_BUCKETS = (1, 8, 128)
 LRN_PARAMS = dict(local_size=5, alpha=1e-4, beta=0.75, k=1.0)  # zoo._lrn
 SERVE_BUCKETS = (1, 8, 64, 128)
+#: phase 9's hold on the int8 lane's fc8 logits against the f32 lane's:
+#: max abs difference over the f32 logits' largest magnitude. About 4x
+#: the drift of full-width CaffeNet's int8 lane (weight rounding and
+#: bfloat16 activations) on random inputs; a stale, zeroed or garbled
+#: answer is off by the order of the logits themselves
+INT8_FC8_REL = 0.05
 TRAIN_LRN_BATCHES = (100, 256)
 # (name, NHWC x shape, kernel, stride, pad); the first three are one
 # CaffeNet training step's MAX pools at batch 256 (TRAIN_POOLS)
@@ -750,7 +786,7 @@ def phase_serve(card: str, device: str = "cuda", crop: int = 227) -> dict:
         fail(f"served prob disagrees with the CPU forward ({err})")
     if device == "cuda":
         profile_forward(net, [p["data"] for p in payloads[1:129]], card)
-    return {"launches": launches}
+    return {"launches": launches, "steady_img_s": 512 / steady_s}
 
 
 def profile_forward(net, rows, card: str, top: int = 12) -> None:
@@ -802,7 +838,7 @@ def profile_forward(net, rows, card: str, top: int = 12) -> None:
 def _zero_counts() -> None:
     from sparknet_tpu_torch.ops.cuda_lrn import lrn_bwd, lrn_fwd
     from sparknet_tpu_torch.ops.cuda_pool import maxpool_bwd
-    lrn_fwd.launches = lrn_fwd.scale_launches = 0
+    lrn_fwd.launches = lrn_fwd.scale_launches = lrn_fwd.bf16_launches = 0
     lrn_bwd.launches = maxpool_bwd.launches = 0
 
 
@@ -2173,6 +2209,577 @@ def phase_elastic(card: str, phase4_round_s=None, device: str = "cuda",
             "render_ms": scraped["render_ms"]}
 
 
+def _quantiles_ms(xs) -> str:
+    ys = sorted(xs)
+    if not ys:
+        return "p50 - ms, p99 - ms"
+    return (f"p50 {ys[len(ys) // 2] * 1e3:.2f} ms, p99 "
+            f"{ys[min(len(ys) - 1, int(0.99 * len(ys)))] * 1e3:.2f} ms")
+
+
+def _forward_ms(net, batch, device: str, iters: int = 10):
+    """(wall ms, device ms) of one bucket forward of `net`: wall is
+    `TorchNet.forward` end to end (host->device copy, kernels, the blocking
+    fetch of prob); device is CUDA events around the net's apply on inputs
+    already on the card (None on the CPU). Medians over `iters` after one
+    warm-up."""
+    import torch
+    net.forward(batch, ["prob"])
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        net.forward(batch, ["prob"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if device != "cuda":
+        return statistics.median(walls), None
+    prepped = net._prep(batch)
+    devs = []
+    with torch.inference_mode():
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            net.net.apply(net.params, prepped, quant=net.quant)
+            end.record()
+            end.synchronize()
+            devs.append(start.elapsed_time(end))
+    return statistics.median(walls), statistics.median(devs)
+
+
+#: a client process for phase 9: `clients` keep-alive threads, each
+#: sending `n` npz requests through http_infer; prints one JSON line with
+#: the wall seconds and every request's latency
+_CLIENT_SRC = r"""
+import json, sys, threading, time
+import numpy as np
+sys.path.insert(0, sys.argv[5])
+from sparknet_tpu_torch.serve.http_frontend import http_infer
+url, clients, n, crop = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    int(sys.argv[4])
+rng = np.random.default_rng(9)
+payloads = [{"data": (50.0 * rng.standard_normal((crop, crop, 3))
+                      ).astype(np.float32)} for _ in range(128)]
+lat, errors = [], []
+
+def client(c):
+    for i in range(n):
+        t0 = time.perf_counter()
+        try:
+            http_infer(url, "caffenet", payloads[(c * 17 + i) % 128],
+                       deadline_s=120.0, timeout=180.0,
+                       tenant=f"proc{c}")
+        except Exception as e:
+            errors.append(repr(e))
+            return
+        lat.append(time.perf_counter() - t0)
+
+for warm in (True, False):
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if warm:
+        lat.clear()
+print(json.dumps({"wall": wall, "lat": lat, "errors": errors[:3]}))
+"""
+
+
+def _client_process(url: str, clients: int, n: int, crop: int) -> dict:
+    """Run `_CLIENT_SRC` in a child process (its own interpreter lock);
+    returns its JSON result."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", _CLIENT_SRC, url,
+                        str(clients), str(n), str(crop), root],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"serve http: the client process failed: {r.stderr[-2000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    if res["errors"]:
+        fail(f"serve http: the client process saw errors {res['errors']}")
+    return res
+
+
+def phase_serve_http(card: str, phase3_img_s=None, device: str = "cuda",
+                     crop: int = 227, clients: int = 8,
+                     per_client: int = 64) -> dict:
+    """Full-width CaffeNet served over HTTP by the port's replica, with a
+    hot reload under traffic and the int8 lane (module docstring, phase
+    9); returns the launch counts of both lanes. The arguments let the
+    phase be rehearsed on the CPU at a small crop (counts then 0)."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import precision, zoo
+    from sparknet_tpu_torch.model.net import params_to_jax
+    from sparknet_tpu_torch.model.quant import QuantConfig, is_quantized
+    from sparknet_tpu_torch.net_api import TorchNet
+    from sparknet_tpu_torch.obs import reqtrace
+    from sparknet_tpu_torch.ops.cuda_lrn import lrn_fwd
+    from sparknet_tpu_torch.serve.admission import TenantAdmission
+    from sparknet_tpu_torch.serve.http_frontend import (HttpFrontend,
+                                                        http_infer)
+    from sparknet_tpu_torch.serve.server import (InferenceServer,
+                                                 ServeConfig, zeros_batch)
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+    from sparknet_tpu_torch.utils.heartbeat import read_heartbeat
+
+    precision.set_policy("float32")
+    # the steady traffic and the bucket-128 forwards are timed under
+    # cuDNN's default settings, as phase 3 and the serve CLI run; from the
+    # swap on, cuDNN's deterministic algorithms, so that a served answer
+    # can be held to a direct forward bit for bit
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    spec = zoo.caffenet(batch=128, crop=crop, n_classes=1000)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_http_")
+    ck = os.path.join(root, "ck")
+    hb_path = os.path.join(root, "hb.json")
+    rng = np.random.default_rng(9)
+    payloads = [{"data": (50.0 * rng.standard_normal((crop, crop, 3))
+                          ).astype(np.float32)} for _ in range(128)]
+    fixed = {"data": (50.0 * np.random.default_rng(99).standard_normal(
+        (crop, crop, 3))).astype(np.float32)}
+    out: dict = {}
+
+    def wait_for(cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > timeout:
+                fail(f"serve http: {what} did not happen within "
+                     f"{timeout:.0f} s")
+            time.sleep(0.002)
+        return time.perf_counter() - t0
+
+    def traffic(url: str, n_each: int, stop=None, tag: str = ""):
+        """`clients` keep-alive client threads through http_infer; each
+        sends n_each requests (or until `stop` once it has). Returns per
+        client [(latency s, step, status)] and the wall seconds."""
+        results = [[] for _ in range(clients)]
+        errors = []
+
+        def client(c: int) -> None:
+            i = 0
+            while i < n_each or (stop is not None and not stop.is_set()):
+                meta: dict = {}
+                t0 = time.perf_counter()
+                try:
+                    r = http_infer(url, "caffenet",
+                                   payloads[(c * 17 + i) % len(payloads)],
+                                   deadline_s=120.0, timeout=180.0,
+                                   tenant=f"client{c}", meta=meta)
+                except Exception as e:  # every one must answer 200
+                    errors.append(f"client {c} request {i}: {e!r}")
+                    return
+                dt = time.perf_counter() - t0
+                prob = r["prob"]
+                if prob.shape != (1000,) or not np.isfinite(prob).all():
+                    errors.append(f"client {c} request {i}: prob "
+                                  f"{prob.shape}")
+                    return
+                results[c].append((dt, meta.get("step"),
+                                   meta.get("status")))
+                i += 1
+
+        threads = [threading.Thread(target=client, args=(c,),
+                                    name=f"http-client-{c}")
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                fail(f"serve http{tag}: a client thread hung")
+        wall = time.perf_counter() - t0
+        if errors:
+            fail(f"serve http{tag}: {errors[:3]}")
+        return results, wall
+
+    # the weights a trainer would commit: seeds 1 and 2, in the JAX
+    # package's layouts (its monolithic format), built before any traffic
+    trees = {}
+    for seed in (1, 2):
+        src = TorchNet(spec, seed=seed, device="cpu")
+        trees[seed] = {"params": params_to_jax(src.net, src.params)}
+        del src
+
+    def save_seed(directory: str, seed: int, step: int) -> str:
+        return ckpt.save(directory, trees[seed], step=step)
+
+    try:
+        # -- the f32 lane -----------------------------------------------------
+        net = TorchNet(spec, seed=0, device=device)
+        cfg = ServeConfig(model_name="caffenet", max_batch=128,
+                          buckets=SERVE_BUCKETS, outputs=("prob",),
+                          max_wait_ms=5.0, checkpoint_dir=ck,
+                          poll_interval_s=0.2, status_port=0,
+                          heartbeat_path=hb_path, heartbeat_every_s=0.5,
+                          metrics_every_batches=0)
+        os.makedirs(ck)
+        _zero_counts()
+        server = InferenceServer(net, cfg).start()
+        fe = HttpFrontend(server, port=0,
+                          tenants=TenantAdmission(rate_rps=1e6, burst=1e6))
+        url = f"http://{fe.address[0]}:{fe.address[1]}"
+        try:
+            # warm-up: every bucket's first forward, keep-alive set up
+            traffic(url, 16, tag=" warm-up")
+            server.reset_counters()
+            # steady traffic, no swap
+            steady, steady_s = traffic(url, per_client, tag=" steady")
+            lat = [x[0] for rows in steady for x in rows]
+            n_steady = len(lat)
+            img_s = n_steady / steady_s
+            st = server.status()
+            print(f"serve http: steady, {clients} keep-alive clients x "
+                  f"{per_client}: {n_steady} requests in {steady_s:.3f} s ="
+                  f" {img_s:.1f} img/s; client-side {_quantiles_ms(lat)};"
+                  f" server-side p50 {st['p50_ms']} ms, p99 {st['p99_ms']}"
+                  f" ms; batch fill {st['batch_fill_ratio']}, batch sizes "
+                  f"{st['batch_size_hist']}; phase 3 in process: "
+                  + (f"{phase3_img_s:.1f}" if phase3_img_s else "-")
+                  + f" img/s; both with cuDNN's default settings [{card}]",
+                  flush=True)
+            out["http_img_s"], out["n_steady"] = img_s, n_steady
+            # the same steady traffic from a client process of its own:
+            # the server's threads no longer share the interpreter lock
+            # with the clients' encoding and decoding
+            server.reset_counters()
+            sub = _client_process(url, clients, per_client, crop)
+            st = server.status()
+            print(f"serve http: steady, the same {clients} x {per_client} "
+                  f"from a client process: {len(sub['lat']) / sub['wall']:.1f}"
+                  f" img/s; client-side {_quantiles_ms(sub['lat'])}; "
+                  f"server-side p50 {st['p50_ms']} ms, p99 {st['p99_ms']} "
+                  f"ms; batch sizes {st['batch_size_hist']} [{card}]",
+                  flush=True)
+            out["http_img_s_client_process"] = len(sub["lat"]) / sub["wall"]
+
+            # where a request's time goes: request tracing on, every
+            # request kept (head sample 1.0), in memory
+            tr = reqtrace.start_request_tracing(head_sample=1.0)
+            try:
+                traffic(url, 16, tag=" traced")
+            finally:
+                reqtrace.stop_request_tracing()
+            rows = [r for r in tr.drain_rows() if r["k"] == "r"]
+            stages: dict = {}
+            for r in rows:
+                for k, v in r["stages"].items():
+                    stages.setdefault(k, []).append(v)
+            totals = [r["dur"] / 1e3 for r in rows]
+            print(f"serve http: traced ({len(rows)} requests, server side,"
+                  f" mean ms): total {statistics.mean(totals):.2f}; "
+                  + ", ".join(f"{k} {statistics.mean(v):.3f}"
+                              for k, v in sorted(stages.items()))
+                  + f" [{card}]", flush=True)
+            t0 = time.perf_counter()
+            from sparknet_tpu_torch.serve.http_frontend import _encode_npz
+            for p in payloads[:32]:
+                _encode_npz(p)
+            print(f"serve http: client npz encode {len(_encode_npz(fixed))}"
+                  f" B in {(time.perf_counter() - t0) / 32 * 1e3:.3f} ms a "
+                  f"request [{card}]", flush=True)
+
+            # the swap under traffic: step 1 (seed 1) written mid-traffic
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            stop = threading.Event()
+            box: dict = {}
+
+            def run_traffic():
+                box["res"], box["wall"] = traffic(url, per_client, stop,
+                                                  tag=" swap")
+
+            before = server.requests_ok
+            drv = threading.Thread(target=run_traffic, name="http-traffic")
+            drv.start()
+            wait_for(lambda: server.requests_ok >= before
+                     + per_client * clients // 4, "mid-traffic point")
+            t0 = time.perf_counter()
+            save_seed(ck, 1, 1)
+            save_s = time.perf_counter() - t0
+            wait_for(lambda: server.manager.step == 1, "the step-1 install")
+            m = server.manager
+            commit_ts = float(json.load(open(os.path.join(
+                ck, "step-1", "meta.json")))["commit_ts"])
+            commit_to_install = m.install_ts - commit_ts
+            fresh_at_install = m.freshness_s(now=m.install_ts)
+            canary_ms = (m.last_canary_s or 0.0) * 1e3
+            # step 2: one byte of its arrays flipped, staged outside the
+            # watched dir, then published whole
+            stage = os.path.join(root, "stage")
+            path = save_seed(stage, 2, 2)
+            npz = os.path.join(path, "state.npz")
+            raw = bytearray(open(npz, "rb").read())
+            raw[len(raw) // 2] ^= 0x01
+            open(npz, "wb").write(bytes(raw))
+            os.rename(path, os.path.join(ck, "step-2"))
+            wait_for(lambda: m.swap_failures >= 1, "the step-2 rejection")
+            stop.set()
+            drv.join(timeout=600)
+            if drv.is_alive() or "res" not in box:
+                fail("serve http: the swap traffic did not finish")
+            swap_rows = box["res"]
+            n_swap = sum(len(r) for r in swap_rows)
+            print(f"serve http: step 1 saved in {save_s:.3f} s; commit to "
+                  f"install {commit_to_install:.3f} s, freshness_s at "
+                  f"install {fresh_at_install}, the canary forward "
+                  f"{canary_ms:.2f} ms; {n_swap} requests during the swap "
+                  f"in {box['wall']:.3f} s [{card}]", flush=True)
+            out.update(commit_to_install_s=commit_to_install,
+                       canary_ms=canary_ms,
+                       freshness_at_install_s=fresh_at_install)
+            if m.step != 1 or "corrupt" not in (m.last_error or ""):
+                fail(f"serve http: step 2 not rejected as corrupt (step "
+                     f"{m.step}, last_error {m.last_error})")
+            total = n_steady + n_swap + 32 * clients
+            steps_seen = set()
+            for c, rows_c in enumerate(swap_rows):
+                steps = [s for _, s, _ in rows_c]
+                if any(code != 200 for _, _, code in rows_c) or \
+                        any(s is None for s in steps):
+                    fail(f"serve http: client {c}: a response without 200 "
+                         f"and a step")
+                if any(b < a for a, b in zip(steps, steps[1:])):
+                    fail(f"serve http: client {c}'s steps decreased: "
+                         f"{steps}")
+                steps_seen.update(steps)
+            if total < 2 * clients * per_client or steps_seen != {-1, 1}:
+                fail(f"serve http: {total} requests (want >= "
+                     f"{2 * clients * per_client}), steps "
+                     f"{sorted(steps_seen)} (want -1 then 1)")
+            print(f"serve http: {total} requests over HTTP in all, every "
+                  f"one 200 with a step; each client's steps never "
+                  f"decrease (-1 = initial weights, then 1) [{card}]",
+                  flush=True)
+            # a fixed request after the swap vs the seed-1 net
+            meta: dict = {}
+            served = http_infer(url, "caffenet", fixed, deadline_s=60.0,
+                                meta=meta)["prob"]
+            if meta.get("step") != 1:
+                fail(f"serve http: fixed request served by step "
+                     f"{meta.get('step')}, want 1")
+            launches = lrn_fwd.launches
+            bf16 = lrn_fwd.bf16_launches
+            traffic_forwards = len(server.batch_log)
+            manager_forwards = m.forwards
+            # the status surfaces
+            host, port = server.status_address
+            health = urllib.request.urlopen(
+                f"http://{host}:{port}/healthz", timeout=30)
+            fe_health = urllib.request.urlopen(f"{url}/healthz", timeout=30)
+            text = urllib.request.urlopen(
+                f"http://{host}:{port}/metrics", timeout=30).read().decode()
+            hb = read_heartbeat(hb_path)
+            swaps_rejected = server.registry.counter(
+                "sparknet_serve_swaps_total",
+                labels=("model", "outcome")).value(model="caffenet",
+                                                   outcome="rejected")
+            connections = fe.connections
+            requests = fe.requests
+        finally:
+            fe.stop()
+            server.stop()
+        if health.status != 200 or fe_health.status != 200:
+            fail(f"serve http: /healthz {health.status} (status server), "
+                 f"{fe_health.status} (frontend)")
+        for fam in ('sparknet_serve_http_requests_total{code="200",'
+                    'transport="http"}',
+                    'sparknet_serve_http_connections_total{transport="http"}',
+                    'sparknet_serve_swaps_total{model="caffenet",'
+                    'outcome="ok"} 1',
+                    'sparknet_serve_swaps_total{model="caffenet",'
+                    'outcome="rejected"} 1',
+                    "sparknet_serve_model_freshness_seconds{",
+                    "sparknet_serve_model_step{", "sparknet_build_info{",
+                    'sparknet_serve_requests_total{model="caffenet",'
+                    'outcome="ok"}'):
+            if fam not in text:
+                fail(f"serve http: /metrics lacks {fam}")
+        if hb is None or not HEARTBEAT_KEYS <= set(hb) or \
+                hb["role"] != "serve" or hb["rollbacks"] != 1 or \
+                hb["step"] != 1 or swaps_rejected != 1:
+            fail(f"serve http: heartbeat {hb}, swaps rejected "
+                 f"{swaps_rejected} (want role serve, step 1, rollbacks 1)")
+        print(f"serve http: /healthz 200 (status server and frontend); "
+              f"/metrics has the serve, http (transport=\"http\"), swap and "
+              f"freshness families; heartbeat step {hb['step']} rollbacks "
+              f"{hb['rollbacks']}; {requests} requests on {connections} "
+              f"connections [{card}]", flush=True)
+        ref_net = TorchNet(spec, seed=1, device=device)
+        # bucket 1 built as the server builds it (a padded host buffer:
+        # a `x[None]` view has batch stride 0, which cuDNN runs by
+        # another algorithm, close but not bit-equal)
+        one = zeros_batch(ref_net, 1)
+        one["data"][0] = fixed["data"]
+        direct = ref_net.forward(one, ["prob"])["prob"][0]
+        same_w = all(torch.equal(t, ref_net.params[l][p])
+                     for l, lp in net.params.items() for p, t in lp.items())
+        if not same_w or not torch.equal(torch.from_numpy(served),
+                                         torch.from_numpy(direct)):
+            again = ref_net.forward(one, ["prob"])["prob"][0]
+            own = net.forward(one, ["prob"])["prob"][0]
+            fail(f"serve http: the fixed request's prob differs from the "
+                 f"seed-1 net's forward at bucket 1 (max abs err "
+                 f"{np.abs(served - direct).max():.3e}; installed weights "
+                 f"equal seed 1's: {same_w}; the seed-1 net again: "
+                 f"{np.abs(again - direct).max():.3e}; the serving net "
+                 f"on this thread: {np.abs(own - served).max():.3e})")
+        print("serve http: after the swap, a fixed request's prob "
+              "torch.equal to the seed-1 net's forward at bucket 1",
+              flush=True)
+        if device == "cuda" and (
+                launches != 2 * (traffic_forwards + manager_forwards)
+                or bf16 != 0):
+            fail(f"serve http: lrn_fwd launched {launches} times ({bf16} "
+                 f"bf16) over {traffic_forwards} traffic and "
+                 f"{manager_forwards} canary forwards (want 2 per forward,"
+                 f" f32)")
+        print(f"serve http: f32 lane: lrn_fwd launches {launches} = 2 x "
+              f"({traffic_forwards} traffic forwards + {manager_forwards} "
+              f"canary forward) [{card}]", flush=True)
+        out["launches"] = {"f32": launches}
+        out["forwards"] = {"f32": traffic_forwards}
+        f32_net = net
+
+        # -- the int8 lane: the same step, quantized ------------------------
+        shutil.rmtree(os.path.join(ck, "step-2"))
+        qnet = TorchNet(spec, seed=0, device=device)
+        qcfg = ServeConfig(model_name="caffenet", max_batch=128,
+                           buckets=SERVE_BUCKETS, outputs=("prob",),
+                           max_wait_ms=5.0, checkpoint_dir=ck,
+                           poll_interval_s=0.2, quant="int8",
+                           metrics_every_batches=0)
+        _zero_counts()
+        t0 = time.perf_counter()
+        qserver = InferenceServer(qnet, qcfg).start()
+        q_start_s = time.perf_counter() - t0
+        qfe = HttpFrontend(qserver, port=0)
+        qurl = f"http://{qfe.address[0]}:{qfe.address[1]}"
+        try:
+            qm = qserver.manager
+            if qm.step != 1 or qm.last_parity_drift is None or \
+                    not is_quantized(qnet.params):
+                fail(f"serve http: the int8 lane did not install step 1 "
+                     f"quantized (step {qm.step}, drift "
+                     f"{qm.last_parity_drift})")
+            qres, q_wall = traffic(qurl, 16, tag=" int8")
+            q_lat = [x[0] for rows in qres for x in rows]
+            qlaunches = lrn_fwd.launches
+            qbf16 = lrn_fwd.bf16_launches
+            q_forwards = len(qserver.batch_log)
+            q_manager = qm.forwards
+            q_ref = qm.reference_forwards
+            # the same requests through both lanes, one at a time (bucket
+            # 1 in both). Three holds on each answer of the int8 lane:
+            # its prob within QuantConfig's gate of the f32 lane's (the
+            # install canary's limit); its fc8 logits within
+            # INT8_FC8_REL of the f32 lane's, relative to their largest
+            # magnitude, where the seed-0 net's logits (the weights
+            # before the swap) must fall outside that limit, so the hold
+            # can fail; and prob and fc8 torch.equal to a direct forward
+            # of the int8 net on a bfloat16 bucket-1 batch built as its
+            # server builds it
+            qc = QuantConfig()
+            stale = TorchNet(spec, seed=0, device=device)
+            worst = worst_fc8 = 0.0
+            stale_fc8 = float("inf")
+            for i, p in enumerate(payloads[:16]):
+                one = zeros_batch(f32_net, 1)
+                one["data"][0] = p["data"]
+                fo = f32_net.forward(one, ["prob", "fc8"])
+                a = {k: fo[k][0] for k in ("prob", "fc8")}
+                s0 = stale.forward(one, ["fc8"])["fc8"][0]
+                b = http_infer(qurl, "caffenet", p, deadline_s=60.0,
+                               outputs=("prob", "fc8"))
+                qone = zeros_batch(qnet, 1, bf16=True)
+                qone["data"][0] = torch.from_numpy(p["data"])
+                d = qnet.forward(qone, ["prob", "fc8"])
+                mag = float(np.abs(a["fc8"]).max())
+                worst = max(worst, float(np.abs(a["prob"] - b["prob"]).max()))
+                worst_fc8 = max(worst_fc8, float(
+                    np.abs(a["fc8"] - b["fc8"]).max()) / mag)
+                stale_fc8 = min(stale_fc8, float(
+                    np.abs(s0 - b["fc8"]).max()) / mag)
+                if not np.allclose(b["prob"], a["prob"], rtol=qc.rtol,
+                                   atol=qc.atol):
+                    fail(f"serve http: int8 prob outside rtol {qc.rtol} / "
+                         f"atol {qc.atol} of the f32 lane's ({worst:.3e})")
+                if worst_fc8 > INT8_FC8_REL or stale_fc8 <= INT8_FC8_REL:
+                    fail(f"serve http: request {i}: int8 fc8 vs the f32 "
+                         f"lane's {worst_fc8:.4f} of its magnitude, the "
+                         f"seed-0 net's {stale_fc8:.4f} (want <= and > "
+                         f"{INT8_FC8_REL})")
+                for k in ("prob", "fc8"):
+                    if not torch.equal(torch.from_numpy(b[k]),
+                                       torch.from_numpy(d[k][0])):
+                        fail(f"serve http: request {i}: the int8 lane's "
+                             f"{k} over HTTP differs from the int8 net's "
+                             f"direct bucket-1 forward (max abs err "
+                             f"{np.abs(b[k] - d[k][0]).max():.3e})")
+            del stale
+        finally:
+            qfe.stop()
+            qserver.stop()
+        if device == "cuda" and (
+                qlaunches != 2 * (q_forwards + q_manager)
+                or qbf16 != 2 * (q_forwards + q_manager - q_ref)):
+            fail(f"serve http: int8 lane lrn_fwd {qlaunches} launches, "
+                 f"{qbf16} bf16, over {q_forwards} traffic, {q_manager} "
+                 f"canary/parity forwards ({q_ref} f32 references)")
+        print(f"serve http: int8 lane: step 1 installed quantized in "
+              f"{q_start_s:.3f} s (parity drift {qm.last_parity_drift:.4f},"
+              f" tol rtol {qc.rtol} atol {qc.atol}); {len(q_lat)} requests "
+              f"in {q_wall:.3f} s, client-side {_quantiles_ms(q_lat)} "
+              f"(deterministic cuDNN); "
+              f"vs the f32 lane: prob max abs err {worst:.3e}, fc8 max "
+              f"abs err {worst_fc8:.4f} of its magnitude (limit "
+              f"{INT8_FC8_REL}; the seed-0 net's fc8 {stale_fc8:.4f}); "
+              f"prob and fc8 torch.equal to the int8 net's direct "
+              f"forward; lrn_fwd "
+              f"{qlaunches} launches, {qbf16} bfloat16 = 2 x ({q_forwards} "
+              f"traffic + {q_manager - q_ref} quantized canary/parity); "
+              f"{2 * q_ref} f32 for the parity reference [{card}]",
+              flush=True)
+        out.update(int8_prob_err=worst, int8_fc8_rel=worst_fc8,
+                   stale_fc8_rel=stale_fc8)
+        out["launches"]["int8"] = qlaunches
+        out["launches"]["int8_bf16"] = qbf16
+        out["forwards"]["int8"] = q_forwards
+        big = {"data": np.stack([p["data"] for p in payloads]),
+               "label": np.zeros((128, 1), np.int32)}
+        # the int8 lane's host batch as its server builds it: bfloat16
+        qbig = zeros_batch(qnet, 128, bf16=True)
+        qbig["data"][:] = torch.from_numpy(big["data"])
+        # timed under cuDNN's default settings again
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        f_wall, f_dev = _forward_ms(f32_net, big, device)
+        q_wall_ms, q_dev = _forward_ms(qnet, qbig, device)
+        fmt = (lambda v: "-" if v is None else f"{v:.3f}")
+        print(f"serve http: bucket-128 forward (cuDNN defaults), wall / "
+              f"device ms: f32 "
+              f"{f_wall:.3f} / {fmt(f_dev)}, int8 {q_wall_ms:.3f} / "
+              f"{fmt(q_dev)} [{card}]", flush=True)
+        out.update(f32_forward_ms=(f_wall, f_dev),
+                   int8_forward_ms=(q_wall_ms, q_dev))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def profile_step(net, params, batch, solver_cfg, card: str,
                  top: int = 14) -> None:
     """One training step (forward, autograd, SGD update) at the main
@@ -2277,6 +2884,7 @@ def main() -> None:
     finally:
         shutil.rmtree(corpus, ignore_errors=True)
     elastic = phase_elastic(card, train["warm_round_s"])
+    http = phase_serve_http(card, serve["steady_img_s"])
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -2312,6 +2920,8 @@ def main() -> None:
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
          "serve_launches": serve["launches"],
+         "serve_http_phase_launches": http["launches"],
+         "serve_http_phase_forwards": http["forwards"],
          "serve": {k: v for k, v in agg.items() if k.endswith("_ms")
                    or k == "ms"},
          "serve_timed_at": "norm1 + norm2, bucket 128, float32",

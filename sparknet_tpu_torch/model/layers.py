@@ -47,6 +47,7 @@ from ..ops.lrn import IMPLS as LRN_IMPLS
 from ..ops.lrn import lrn as lrn_op
 from ..ops.pooling import IMPLS as POOL_IMPLS
 from ..ops.pooling import caffe_pool_output_size, global_pool2d, pool2d
+from .quant import QuantConfig, dequantize_weight
 from .spec import Filler, LayerSpec
 
 Params = Dict[str, torch.Tensor]
@@ -82,11 +83,15 @@ class ApplyCtx:
 
     train: the TRAIN phase (dropout active). generator: the step's
     torch.Generator, from which `fold` derives each dropout layer's own.
+    quant: serve-side weight-only quantization (model/quant.py) — the
+    activation dtype quantized layers dequantize into; consulted only
+    when a layer's params carry the (w_q, w_scale) pair.
     """
 
     ops: OpsImpl = dataclasses.field(default_factory=OpsImpl)
     train: bool = False
     generator: Optional[torch.Generator] = None
+    quant: Optional[QuantConfig] = None
 
     def fold(self, name: str, device: torch.device) -> torch.Generator:
         """A generator on `device` seeded from (the step generator's seed,
@@ -164,11 +169,29 @@ def init_convolution(gen, layer: LayerSpec, in_shapes, device) -> Params:
     return params
 
 
+def resolve_quantized(params: Params, x: torch.Tensor, ctx: ApplyCtx):
+    """(x, w) for a quantized layer (int8 `w_q` + per-channel `w_scale`,
+    installed by the serve ModelManager): the weight dequantized at use
+    into the quant activation dtype, `(w_q.float() * w_scale).to(act)`,
+    and the activations cast to match — the JAX package's
+    `resolve_weight` (`sparknet_tpu/model/layers.py:159-163`)."""
+    dt = (ctx.quant or QuantConfig()).act_dtype()
+    return x.to(dt), dequantize_weight(params["w_q"],
+                                       params["w_scale"]).to(dt)
+
+
 def apply_convolution(layer: LayerSpec, params: Params, inputs,
                       ctx: ApplyCtx):
     p = layer.conv
     (x,) = inputs
     b = params.get("b")
+    if "w_q" in params:
+        # the JAX package's order: the product in the activation dtype,
+        # then the bias cast to it and added
+        x, w = resolve_quantized(params, x, ctx)
+        y = F.conv2d(x, w, None, stride=p.stride, padding=p.pad,
+                     groups=p.group)
+        return (y if b is None else y + b.to(y.dtype).view(1, -1, 1, 1),)
     y = F.conv2d(precision.cast_in(x), precision.cast_in(params["w"]),
                  None if b is None else precision.cast_in(b),
                  stride=p.stride, padding=p.pad, groups=p.group)
@@ -267,6 +290,10 @@ def apply_innerproduct(layer: LayerSpec, params: Params, inputs,
     # NCHW tensors here (reshape copies out of channels_last memory)
     x = x.reshape(x.shape[0], -1)
     b = params.get("b")
+    if "w_q" in params:
+        x, w = resolve_quantized(params, x, ctx)
+        y = F.linear(x, w)
+        return (y if b is None else y + b.to(y.dtype),)
     y = F.linear(precision.cast_in(x), precision.cast_in(params["w"]),
                  None if b is None else precision.cast_in(b))
     return (y,)

@@ -28,6 +28,7 @@ import torch
 
 from .. import precision
 from .layers import LAYER_IMPLS, ApplyCtx, OpsImpl, Params, _flat_dim
+from .quant import QuantConfig
 from .spec import NetSpec, validate
 
 ParamTree = Dict[str, Params]
@@ -110,17 +111,22 @@ class CompiledNet:
     def apply(self, params: ParamTree, batch: Mapping[str, torch.Tensor], *,
               train: bool = False, phase: Optional[str] = None,
               generator: Optional[torch.Generator] = None,
-              ops: Optional[OpsImpl] = None) -> Dict[str, torch.Tensor]:
+              ops: Optional[OpsImpl] = None,
+              quant: Optional[QuantConfig] = None
+              ) -> Dict[str, torch.Tensor]:
         """Run the net. `batch` maps input blob names to NHWC tensors;
         returns every blob produced (inputs excluded), 4-D blobs as NHWC
         views — parity with the JAX package's `CompiledNet.apply`, hidden
         blobs included. `phase` defaults to TRAIN when `train` else TEST;
         `generator` seeds the TRAIN phase's dropout masks (ApplyCtx.fold).
-        Gradients flow to `params` through autograd."""
+        `quant`: serving-side weight-only quantization (model/quant.py);
+        `params` may then hold int8 `w_q` + per-channel `w_scale` for the
+        parametric layers, which dequantize at use into its activation
+        dtype. Gradients flow to `params` through autograd."""
         precision.apply_backend_flags()
         phase = phase or ("TRAIN" if train else "TEST")
         ctx = ApplyCtx(ops=ops or OpsImpl(), train=train,
-                       generator=generator)
+                       generator=generator, quant=quant)
         blobs: Dict[str, torch.Tensor] = {
             k: (v.permute(0, 3, 1, 2) if v.ndim == 4 else v)
             for k, v in batch.items()}

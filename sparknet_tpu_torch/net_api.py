@@ -77,6 +77,15 @@ class TorchNet:
             self.solver_state = self.solver.init_state(self.params)
         self._seed = seed ^ 0x5EED
         self._calls = 0  # forward_backward / step calls: the generator key
+        # serving-side weight-only quantization (model/quant.py): set via
+        # set_quant() alongside a quantized params tree
+        self.quant = None
+
+    def set_quant(self, quant) -> None:
+        """Install or clear the quant config (a `QuantConfig` or None) of
+        test-phase forwards. Call alongside swapping `self.params` to or
+        from a quantized tree (`model/quant.py`)."""
+        self.quant = quant
 
     # -- data plumbing ------------------------------------------------------
 
@@ -86,7 +95,18 @@ class TorchNet:
         for name, want in self.net.input_shapes.items():
             if name not in batch:
                 raise ValueError(f"batch missing net input {name!r}")
-            arr = _maybe_nhwc(np.asarray(batch[name]), want)
+            v = batch[name]
+            if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+                # a bfloat16 host batch (the quantized serve lane's pad
+                # buffers): half the host->device bytes, kept bfloat16
+                # on the card — the first layer casts it as it would
+                if tuple(v.shape[1:]) != tuple(want[1:]):
+                    raise ValueError(
+                        f"input {name!r}: got {tuple(v.shape)}, net "
+                        f"expects (N,)+{tuple(want[1:])} (layout NHWC)")
+                out[name] = v.to(self.device)
+                continue
+            arr = _maybe_nhwc(np.asarray(v), want)
             if tuple(arr.shape[1:]) != tuple(want[1:]):
                 raise ValueError(
                     f"input {name!r}: got {arr.shape}, net expects "
@@ -105,7 +125,8 @@ class TorchNet:
         hidden blobs, as NHWC numpy arrays. `ops` selects the kernels
         (default `OpsImpl()`: the CUDA kernels on the card)."""
         with torch.inference_mode():
-            blobs = self.net.apply(self.params, self._prep(batch), ops=ops)
+            blobs = self.net.apply(self.params, self._prep(batch), ops=ops,
+                                   quant=self.quant)
             want = set(self.net.output_names) | set(blob_names or [])
             return {k: _to_host(v) for k, v in blobs.items() if k in want}
 

@@ -1,1 +1,2 @@
-"""Observability: the metrics registry and the host-side span tracer."""
+"""Observability: the metrics registry, the host-side span tracer, request
+tracing, the status server, run metadata and the pod view."""

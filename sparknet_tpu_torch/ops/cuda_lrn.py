@@ -22,7 +22,8 @@ passes over the tile, and stores dx with 16-byte stores. See the sources.
 
 A wrapper launches its kernel for a CUDA tensor and counts the launch
 (`lrn_fwd.launches`, `lrn_bwd.launches`; `lrn_fwd.scale_launches` counts
-the launches that also wrote the scale); a CPU tensor takes the plain
+the launches that also wrote the scale, `lrn_fwd.bf16_launches` those on
+bfloat16 tensors); a CPU tensor takes the plain
 version (`ops/lrn.py`) and is not counted. Anything a kernel does not
 take — another dtype or device, a non-contiguous tensor, an even window,
 too many channels, mismatched inputs — raises. There is no fallback from a
@@ -143,6 +144,8 @@ def lrn_fwd(x: torch.Tensor, local_size: int = 5, alpha: float = 1e-4,
                   beta, beta_mode(beta))
     _raise_on("lrn_fwd", lib, err)
     lrn_fwd.launches += 1
+    if x.dtype == torch.bfloat16:
+        lrn_fwd.bf16_launches += 1
     if with_scale:
         lrn_fwd.scale_launches += 1
         return y, scale
@@ -150,9 +153,11 @@ def lrn_fwd(x: torch.Tensor, local_size: int = 5, alpha: float = 1e-4,
 
 
 #: kernel launches since the last reset (CPU calls are not launches), and
-#: those of them that also wrote the scale (the saved-scale route)
+#: those of them that also wrote the scale (the saved-scale route) and
+#: those on bfloat16 tensors
 lrn_fwd.launches = 0
 lrn_fwd.scale_launches = 0
+lrn_fwd.bf16_launches = 0
 
 
 def lrn_bwd(x: torch.Tensor, dy: torch.Tensor,

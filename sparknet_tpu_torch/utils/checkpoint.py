@@ -33,9 +33,15 @@ stored as its uint16 bit pattern with `ext_dtypes[key] = "bfloat16"` (the
 reference's encoding) and comes back from a restore as a bfloat16 CPU
 tensor, bit for bit. The view is done with torch, not `ml_dtypes`.
 
+A step that is gone when it is read (no meta.json, or its state.npz and
+meta.json deleted while it was read) raises `CheckpointVanishedError`, a
+`CheckpointCorruptError`: the serving manager counts it as neither a
+rejection nor a cooldown.
+
 Not ported yet: a step in the per-shard layout (meta.json with
-"shards") raises NotImplementedError naming the layout when it is read —
-it is not reported as corrupt; the logical (NamedSharding) layout.
+"shards") raises NotImplementedError naming the layout and ROADMAP A6b
+when it is read — it is not reported as corrupt; the logical
+(NamedSharding) layout.
 """
 from __future__ import annotations
 
@@ -59,6 +65,16 @@ import torch
 class CheckpointCorruptError(RuntimeError):
     """A checkpoint directory exists but fails integrity verification
     (unreadable meta.json / state.npz, missing keys, or digest mismatch)."""
+
+
+class CheckpointVanishedError(CheckpointCorruptError):
+    """A listed step is gone by the time it is read: its meta.json commit
+    marker is missing (retention-pruned, or never committed), or its
+    state.npz went missing together with its meta.json. A subclass of
+    CheckpointCorruptError, so every rollback and skip path still treats
+    the step as not loadable, while a caller that reacts to corruption
+    (the serving manager's rejected-swap cooldown) can tell "the bytes
+    are bad" from "the step is gone"."""
 
 
 # -- store plumbing: local directories vs gs://|s3:// bucket prefixes -------
@@ -402,6 +418,18 @@ def latest_step(directory: str) -> Optional[int]:
     return None
 
 
+def _raise_missing_state(path: str, err: Exception) -> None:
+    """A committed meta.json whose state.npz is missing: vanished when
+    the meta.json has gone too (`retain` deleted the step between the two
+    reads), else corrupt."""
+    if _load_meta(path) is None:
+        raise CheckpointVanishedError(
+            f"{path}: deleted while it was read (state.npz and then "
+            f"meta.json gone): {err}") from err
+    raise CheckpointCorruptError(f"{path}: state.npz missing: {err}"
+                                 ) from err
+
+
 def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], int,
                                          Dict[str, Any]]:
     """Load and verify one step directory. Raises CheckpointCorruptError
@@ -409,13 +437,13 @@ def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], int,
     Digest-less (older format) steps load with a vacuous digest check."""
     meta = _load_meta(path)
     if meta is None:
-        raise CheckpointCorruptError(
+        raise CheckpointVanishedError(
             f"{path}: meta.json missing/unreadable — never committed or "
             f"retention-pruned")
     if "shards" in meta:
         raise NotImplementedError(
             f"{path}: a per-shard checkpoint (checkpoint_sharded layout); "
-            f"reading per-shard steps is not ported yet")
+            f"reading per-shard steps is not ported yet (ROADMAP A6b)")
     try:
         if is_bucket_path(path):
             # one ranged stream with reconnect-resume, copied into ONE
@@ -435,9 +463,10 @@ def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], int,
         raise  # store trouble, not corruption
     except urllib.error.HTTPError as e:
         if e.code == 404:  # committed meta over a missing state
-            raise CheckpointCorruptError(
-                f"{path}: state.npz missing: {e}") from e
+            _raise_missing_state(path, e)
         raise
+    except FileNotFoundError as e:
+        _raise_missing_state(path, e)
     except Exception as e:
         raise CheckpointCorruptError(f"{path}: state.npz unreadable: {e}"
                                      ) from e

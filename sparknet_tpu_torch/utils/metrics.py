@@ -171,6 +171,17 @@ class LatencyStats:
         if self._hist is not None:
             self._hist.observe(seconds, **self._labels)
 
+    def windowed_quantile(self, q: float, window_s: float
+                          ) -> Optional[float]:
+        """Exact order statistic (SECONDS) over the observations of the
+        last `window_s` seconds, or None if the window holds nothing —
+        the request tracer's "beyond the live p95" threshold."""
+        cutoff = time.monotonic() - float(window_s)
+        with self._lock:
+            xs = sorted(v for v, t in zip(self._obs, self._obs_t)
+                        if t >= cutoff)
+        return _rank(xs, q) if xs else None
+
     def summary(self) -> Dict[str, Optional[float]]:
         # ONE consistent copy for all three quantiles: a scrape racing the
         # worker's add() must not see p50 and p99 from different windows
@@ -212,6 +223,10 @@ class FillMeter:
         self.padded = 0
         self.batches = 0
         self.size_counts: Dict[int, int] = {}
+        # the last few formed batches as (real, bucket) pairs: the recent
+        # occupancy a status row reports (the cumulative ratio would stay
+        # near 1.0 long after the load turned to a trickle)
+        self._recent: deque = deque(maxlen=64)
         self._lock = threading.Lock()
         self._labels = {} if model is None else {"model": str(model)}
         self._c_rows = self._c_batches = self._g_fill = None
@@ -241,6 +256,7 @@ class FillMeter:
             self.batches += 1
             self.size_counts[int(n_real)] = \
                 self.size_counts.get(int(n_real), 0) + 1
+            self._recent.append((int(n_real), int(bucket)))
         if self._c_rows is not None:
             self._c_rows.inc(int(n_real), kind="real", **self._labels)
             self._c_rows.inc(int(bucket) - int(n_real), kind="padding",
@@ -252,6 +268,19 @@ class FillMeter:
     def ratio(self) -> float:
         with self._lock:
             return self.real / self.padded if self.padded else 0.0
+
+    def recent_occupancy(self, capacity: int,
+                         n: int = 16) -> Optional[float]:
+        """Mean real rows per recent batch as a fraction of `capacity`
+        (max_batch), or None with no recent batches. Bucket-relative fill
+        is blind to a fragmented trickle (a single request pads into
+        bucket 1 at fill 1.0); occupancy against capacity is not."""
+        with self._lock:
+            tail = list(self._recent)[-int(n):]
+        if not tail or capacity <= 0:
+            return None
+        real = sum(r for r, _ in tail)
+        return min(1.0, real / (len(tail) * capacity))
 
     def snapshot(self) -> Tuple[int, int, int]:
         """(real, padded, batches) read consistently under the lock."""
@@ -267,3 +296,4 @@ class FillMeter:
         with self._lock:
             self.real = self.padded = self.batches = 0
             self.size_counts.clear()
+            self._recent.clear()

@@ -290,7 +290,8 @@ def test_serve_cli_takes_a_prototxt_model_and_weights(tmp_path, capsys,
                     "--max-batch", "8", "--demo", "3",
                     "--workdir", str(tmp_path)])
     status = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert status["requests_ok"] == 3 and status["model"] == str(path)
+    # the serving name is --model-name ("default"), as in the JAX CLI
+    assert status["requests_ok"] == 3 and status["model"] == "default"
     (net,) = served
     assert dataclasses.asdict(net.net.spec) == dataclasses.asdict(
         jax_prototxt.net_from_prototxt(jax_prototxt_tests.ADULT))
