@@ -2,8 +2,9 @@
 """Chip smoke of the PyTorch/CUDA port: does the port serve and train
 CaffeNet on the card, through the ImageNet app from JPEG shards too,
 cached and streamed, from a directory and from a bucket, watched by its
-telemetry, through the loss of a worker, and behind an HTTP port that
-hot-reloads a training step under traffic?
+telemetry, through the loss of a worker, behind an HTTP port that
+hot-reloads a training step under traffic, and with per-shard
+checkpoints, a host trace, the profiler and the relaunch supervisor?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -211,7 +212,40 @@ Phases, in order; any failure exits non-zero before the result line:
    Prints the connections opened, commit-to-install seconds, the canary
    ms, freshness_s at install, and the f32 and int8 bucket-128 forward
    times (wall and device).
-10. The kernels line, `{"kernels": [...]}`, then the result line
+10. Per-shard and supervised: the same CaffeNet, solver, bfloat16, b256
+   and τ = 5 through `apps.train_loop.train` in a world of one, on
+   seeded int8 images, with cuDNN's deterministic algorithms:
+   - the two layouts, 4 rounds each with `checkpoint_every=2`:
+     `checkpoint_sharded="off"` and `"on"` (the latter with `trace_out`
+     and `profile_dir`). Checks: the "on" steps are `format: "sharded"`
+     with one shard file and its digest; every step of both verifies;
+     `restore_flat` of the two step-4s equal key for key, bit for bit;
+     a second `train()` resuming from the per-shard step 2 to round 4 is
+     `torch.equal`, tensor for tensor, to the uninterrupted "on" run;
+     launches 2 / 2 / 3 per step. Prints each layout's stage-1, save and
+     restore seconds and bytes;
+   - the host trace parses, with `round_prep`, `h2d_prefetch` and
+     `checkpoint_write` spans and one `flush` instant per round; the
+     profile directory holds round 1's trace: device time by kernel name
+     (the top rows, down to the last of the port's kernels); each of the
+     port's kernels appears in it (its records printed beside the launch
+     counters' exact 2 / 2 / 3 per step: a process that profiled before
+     can miss a window's first kernels), and a cuDNN convolution ranks
+     in the top 10;
+   - the relaunch supervisor (`python -m sparknet_tpu_torch.parallel.
+     supervise --nproc 1`) over a child process running phase 8's
+     watched configuration with `checkpoint_sharded="on"` to round 8,
+     its nominal worker 1 silent after round 3: the first launch exits 75
+     at round 6 with a verified per-shard boundary step, the supervisor
+     relaunches with no strike, the second launch logs "ELASTIC resume",
+     runs rounds 6-7 and exits 0; the summary reads launches 2,
+     relaunches 1, strikes 0, code 0; each launch's kernels 2 / 2 / 3
+     per executed step. Prints the relaunch's seconds (from the exit 75
+     to the next `train()`);
+   - a port `ModelManager` on the card installs the per-shard step 4; its
+     bucket-1 prob `torch.equal` to that of a net loaded from the
+     monolithic step 4.
+11. The kernels line, `{"kernels": [...]}`, then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -2209,6 +2243,463 @@ def phase_elastic(card: str, phase4_round_s=None, device: str = "cuda",
             "render_ms": scraped["render_ms"]}
 
 
+#: phase 10's supervised child: phase 8's watched configuration with
+#: per-shard checkpoints, one launch of `train()` under the relaunch
+#: supervisor. argv: the repo root, then a JSON spec. It prints one line
+#: "phase10-child: {json}" with its launch counts and executed steps, and
+#: leaves with the loop's exit code (75 at the membership change).
+CHILD_SHARDED = r"""
+import time
+t_proc0 = time.time()
+import json, os, sys
+root, spec = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from sparknet_tpu_torch import zoo
+from sparknet_tpu_torch.apps.train_loop import train
+from sparknet_tpu_torch.data.dataset import ArrayDataset
+from sparknet_tpu_torch.obs.pod import worker_heartbeat_path
+from sparknet_tpu_torch.ops.cuda_lrn import lrn_bwd, lrn_fwd
+from sparknet_tpu_torch.ops.cuda_pool import maxpool_bwd
+from sparknet_tpu_torch.parallel.elastic import ElasticRelaunch
+from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+from sparknet_tpu_torch.solver import SolverConfig
+from sparknet_tpu_torch.utils import checkpoint as ckpt
+from sparknet_tpu_torch.utils.config import ElasticConfig, RunConfig
+from sparknet_tpu_torch.utils.heartbeat import HeartbeatWriter
+from sparknet_tpu_torch.utils.logger import Logger
+
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+crop, batch, tau, ncls = (spec[k] for k in ("crop", "batch", "tau",
+                                            "n_classes"))
+r = np.random.default_rng(8)
+data = r.integers(-128, 128, (tau * batch, crop, crop, 3), dtype=np.int8)
+labels = r.integers(0, ncls, (tau * batch, 1)).astype(np.int32)
+relaunched = os.environ.get("SPARKNET_ELASTIC_RELAUNCH") == "1"
+pod = spec["pod_dir"]
+hb1 = HeartbeatWriter(worker_heartbeat_path(pod, 1), interval_s=0.0)
+if not relaunched:
+    hb1.beat(0, status="ok", round_s=0.001, force=True)
+budgets = []
+real_round = ParallelTrainer.train_round
+
+
+def train_round(self, state, batches, rng, lr_scale=1.0, tau_by_worker=None):
+    budgets.append(tau if tau_by_worker is None else int(tau_by_worker[0]))
+    return real_round(self, state, batches, rng, lr_scale=lr_scale,
+                      tau_by_worker=tau_by_worker)
+
+
+ParallelTrainer.train_round = train_round
+
+
+def hook(rnd, state):
+    if relaunched:
+        return
+    if rnd < spec["kill_after"]:
+        hb1.beat(rnd, status="ok", round_s=0.001, force=True)
+    elif rnd == spec["kill_after"]:
+        p = worker_heartbeat_path(pod, 1)
+        rec = json.load(open(p))
+        rec["t"] = time.time() - 1e4
+        json.dump(rec, open(p, "w"))
+
+
+cfg = RunConfig(model="caffenet", n_classes=ncls, crop=crop,
+                solver=SolverConfig(**spec["solver"]), tau=tau,
+                local_batch=batch, eval_every=0, precision="bfloat16",
+                seed=0, workdir=spec["workdir"], heartbeat_every_s=0.0,
+                pod_dir=pod, max_rounds=spec["max_rounds"], status_port=0,
+                pod_port=0, heartbeat_path=os.path.join(spec["workdir"],
+                                                        "hb.json"),
+                checkpoint_dir=spec["ck"], checkpoint_every=2,
+                checkpoint_sharded="on", elastic=ElasticConfig(
+                    enabled=True, expected_workers=2, min_workers=1,
+                    tau_adapt=True, poll_interval_s=0.0,
+                    reprobe_backoff_s=0.0, dead_probes=2))
+log_path = os.path.join(spec["workdir"],
+                        "relaunch.txt" if relaunched else "first.txt")
+log = Logger(log_path, echo=False)
+lrn_fwd.launches = lrn_fwd.scale_launches = lrn_fwd.bf16_launches = 0
+lrn_bwd.launches = maxpool_bwd.launches = 0
+out = {"relaunched": relaunched, "code": 0, "t_proc0": t_proc0,
+       "t_train0": time.time()}
+try:
+    train(cfg, zoo.caffenet(batch=batch, crop=crop, n_classes=ncls),
+          ArrayDataset({"data": data, "label": labels}), None, logger=log,
+          device=spec["device"], round_hook=hook)
+except ElasticRelaunch as e:
+    out["code"] = e.code
+    raise
+finally:
+    log.close()
+    out.update(
+        t_end=time.time(),
+        counts={"lrn_fwd": lrn_fwd.launches,
+                "lrn_fwd_scale": lrn_fwd.scale_launches,
+                "lrn_bwd": lrn_bwd.launches,
+                "maxpool_bwd": maxpool_bwd.launches},
+        executed=sum(budgets), rounds=len(budgets),
+        elastic_resume=any("ELASTIC resume" in line
+                           for line in open(log_path)),
+        steps={s: ckpt.verify(os.path.join(spec["ck"], f"step-{s}"))
+               and "shards" in json.load(open(os.path.join(
+                   spec["ck"], f"step-{s}", "meta.json")))
+               for s in ckpt._list_steps(spec["ck"])})
+    print("phase10-child: " + json.dumps(out), flush=True)
+"""
+
+
+def phase_sharded(card: str, device: str = "cuda", crop: int = 227,
+                  batch: int = 256, tau: int = 5, n_classes: int = 1000,
+                  kill_after: int = 3) -> dict:
+    """Per-shard checkpoints, the host trace, the profiler, the relaunch
+    supervisor and a per-shard step served (module docstring, phase 10);
+    returns each run's launch counts and executed steps. The arguments
+    let the phase be rehearsed on the CPU at a small size (counts then
+    0)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import precision, zoo
+    from sparknet_tpu_torch.apps.train_loop import train
+    from sparknet_tpu_torch.data.dataset import ArrayDataset
+    from sparknet_tpu_torch.net_api import TorchNet
+    from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+    from sparknet_tpu_torch.serve.model_manager import ModelManager
+    from sparknet_tpu_torch.solver import SolverConfig
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+    from sparknet_tpu_torch.utils.config import RunConfig
+
+    r = np.random.default_rng(10)
+    n = tau * batch
+    data = r.integers(-128, 128, (n, crop, crop, 3), dtype=np.int8)
+    labels = r.integers(0, n_classes, (n, 1)).astype(np.int32)
+    train_ds = ArrayDataset({"data": data, "label": labels})
+    spec = zoo.caffenet(batch=batch, crop=crop, n_classes=n_classes)
+    kernels = device == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    timed = []
+    lock = threading.Lock()
+    originals = (ckpt.save, ckpt.save_sharded,
+                 ParallelTrainer.checkpoint_tree,
+                 ParallelTrainer.checkpoint_shards)
+
+    def note(layout, what, t0, step=None, nbytes=None):
+        with lock:
+            timed.append({"layout": layout, "what": what, "step": step,
+                          "s": time.perf_counter() - t0, "bytes": nbytes,
+                          "thread": threading.current_thread().name})
+
+    def save(directory, tree, *, step, extra=None):
+        t0 = time.perf_counter()
+        path = originals[0](directory, tree, step=step, extra=extra)
+        note("off", "save", t0, step, _dir_bytes(path))
+        return path
+
+    def save_sharded(directory, snapshot, *, step, extra=None, **kw):
+        t0 = time.perf_counter()
+        path = originals[1](directory, snapshot, step=step, extra=extra,
+                            **kw)
+        note("on", "save", t0, step, _dir_bytes(path))
+        return path
+
+    def checkpoint_tree(self, state):
+        t0 = time.perf_counter()
+        out = originals[2](self, state)
+        note("off", "stage 1", t0)
+        return out
+
+    def checkpoint_shards(self, state):
+        t0 = time.perf_counter()
+        out = originals[3](self, state)
+        note("on", "stage 1", t0)
+        return out
+
+    ckpt.save, ckpt.save_sharded = save, save_sharded
+    ParallelTrainer.checkpoint_tree = checkpoint_tree
+    ParallelTrainer.checkpoint_shards = checkpoint_shards
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    launches, steps_of = {}, {}
+
+    def run(label, cfg, n_rounds):
+        log = _capture_logger()
+        if kernels:
+            torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        state = train(cfg, spec, train_ds, None, logger=log, device=device)
+        if kernels:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        rounds = [x for x in log.records if "loss" in x]
+        for x in rounds:
+            if not (math.isfinite(x["loss"]) and x.get("nonfinite") == 0):
+                fail(f"sharded[{label}] round {x['round']}: loss "
+                     f"{x['loss']}, nonfinite {x.get('nonfinite')}")
+        print(f"sharded[{label}]: {len(rounds)} rounds in {wall:.2f}s wall "
+              f"(set-up and checkpoints included), round_s "
+              f"{_stats([x['round_s'] for x in rounds[1:]])} s, launches "
+              f"{counts} [{card}]", flush=True)
+        if len(rounds) != n_rounds:
+            fail(f"sharded[{label}]: {len(rounds)} rounds, want {n_rounds}")
+        executed = n_rounds * tau
+        launches[label], steps_of[label] = counts, executed
+        if kernels:
+            _expect_counts(f"sharded[{label}]", counts, {
+                "lrn_fwd": 2 * executed, "lrn_fwd_scale": 0,
+                "lrn_bwd": 2 * executed, "maxpool_bwd": 3 * executed})
+        return state, log
+
+    try:
+        base = RunConfig(model="caffenet", n_classes=n_classes, crop=crop,
+                         solver=SolverConfig(**IMAGENET_SOLVER), tau=tau,
+                         local_batch=batch, eval_every=0,
+                         precision="bfloat16", seed=0, workdir=root,
+                         checkpoint_every=2, max_rounds=4)
+        dirs = {k: os.path.join(root, k) for k in ("off", "on", "half")}
+        trace_path = os.path.join(root, "trace.json")
+        prof_dir = os.path.join(root, "profile")
+        # the two layouts, 4 rounds each; trace_out and profile_dir on "on"
+        off, _ = run("off", dataclasses.replace(
+            base, checkpoint_dir=dirs["off"], checkpoint_sharded="off"), 4)
+        on, log_on = run("on", dataclasses.replace(
+            base, checkpoint_dir=dirs["on"], checkpoint_sharded="on",
+            trace_out=trace_path, profile_dir=prof_dir), 4)
+        for layout in ("off", "on"):
+            for name in sorted(os.listdir(dirs[layout])):
+                path = os.path.join(dirs[layout], name)
+                meta = json.load(open(os.path.join(path, "meta.json")))
+                sharded = meta.get("format") == "sharded"
+                if not ckpt.verify(path) or sharded != (layout == "on") or (
+                        sharded and (len(meta["shards"]) != 1 or len(
+                            meta["shards"][0].get("digest", "")) != 64)):
+                    fail(f"sharded[{layout}]: {path} (format "
+                         f"{meta.get('format')}, shards "
+                         f"{meta.get('shards')}) does not verify as the "
+                         f"{layout!r} layout")
+        restored = {}
+        for layout in ("off", "on"):
+            t0 = time.perf_counter()
+            flat, step, _ = ckpt.restore_flat(dirs[layout], step=4)
+            note(layout, "restore", t0, step, sum(
+                int(a.numel() * a.element_size())
+                if isinstance(a, torch.Tensor) else int(a.nbytes)
+                for a in flat.values()))
+            restored[layout] = flat
+
+        def bits(a):
+            if isinstance(a, torch.Tensor):
+                return str(a.dtype), tuple(a.shape), (
+                    a.view(torch.int16) if a.dtype == torch.bfloat16
+                    else a).numpy().tobytes()
+            return str(a.dtype), a.shape, a.tobytes()
+
+        bad = [k for k in restored["off"] if k not in restored["on"] or
+               bits(restored["off"][k]) != bits(restored["on"][k])]
+        if bad or sorted(restored["off"]) != sorted(restored["on"]):
+            fail(f"sharded: restore_flat of the two layouts' step 4 differ "
+                 f"on {bad[:5]}")
+        del restored
+        print(f"sharded: both layouts' steps verify; restore_flat of the "
+              f"two step-4s equal key for key, bit for bit [{card}]",
+              flush=True)
+        # resume from the per-shard step 2 to round 4
+        run("half", dataclasses.replace(
+            base, max_rounds=2, checkpoint_dir=dirs["half"],
+            checkpoint_sharded="on"), 2)
+        resumed, log_r = run("resumed", dataclasses.replace(
+            base, checkpoint_dir=dirs["half"], checkpoint_sharded="on",
+            resume=True), 2)
+        if not any("resumed from checkpoint round 2" in m
+                   for m in log_r.lines):
+            fail(f"sharded[resumed]: no resume line in {log_r.lines}")
+        for kind in ("params", "momentum"):
+            a, b = getattr(on, kind), getattr(resumed, kind)
+            diff = [f"{l}/{p}" for l in a for p in a[l]
+                    if not torch.equal(a[l][p], b[l][p])]
+            if diff:
+                fail(f"sharded: the resume from per-shard step 2 differs "
+                     f"from the uninterrupted run in {kind}: {diff}")
+        if resumed.it != on.it or not torch.equal(off.flat_params,
+                                                  on.flat_params):
+            fail(f"sharded: it {resumed.it} vs {on.it}, or the layouts' "
+                 f"final params differ")
+        print(f"sharded: the resume from per-shard step 2 is torch.equal "
+              f"to the uninterrupted run (every param and momentum tensor, "
+              f"it {on.it}) [{card}]", flush=True)
+        for t in timed:
+            print(f"sharded[{t['layout']}]: {t['what']}"
+                  + (f" step {t['step']}" if t["step"] is not None else "")
+                  + f": {t['s']:.3f}s"
+                  + (f", {t['bytes']} bytes" if t["bytes"] is not None
+                     else "") + f" (thread {t['thread']}) [{card}]",
+                  flush=True)
+
+        # the host trace and the profiled round of the "on" run
+        evs = json.load(open(trace_path))["traceEvents"]
+        spans = {e["name"] for e in evs if e["ph"] == "X"}
+        flushes = [e["args"]["round"] for e in evs if e["ph"] == "i"
+                   and e["name"] == "flush"]
+        if not {"round_prep", "h2d_prefetch", "checkpoint_write"} <= spans \
+                or flushes != [0, 1, 2, 3]:
+            fail(f"sharded: trace spans {sorted(spans)}, flush rounds "
+                 f"{flushes}")
+        print(f"sharded: host trace {len(evs)} events, spans "
+              f"{sorted(spans)}, flush instants for rounds {flushes} "
+              f"[{card}]", flush=True)
+        files = os.listdir(prof_dir)
+        if files != ["round-1.pt.trace.json"] or not any(
+                f"profiler trace written to {prof_dir}" in m
+                for m in log_on.lines):
+            fail(f"sharded: profile directory holds {files}")
+        pev = json.load(open(os.path.join(prof_dir, files[0])))
+        by_name, count = {}, {}
+        for e in pev["traceEvents"]:
+            if e.get("cat") == "kernel":
+                by_name[e["name"]] = by_name.get(e["name"], 0) + e["dur"]
+                count[e["name"]] = count.get(e["name"], 0) + 1
+        rows = sorted(by_name.items(), key=lambda kv: -kv[1])
+        total = sum(by_name.values()) / 1e3
+        ours = {k: [i for i, (nm, _) in enumerate(rows) if k in nm]
+                for k in ("lrn_fwd_kernel", "lrn_bwd_kernel",
+                          "maxpool_bwd_kernel")}
+        convs = [i for i, (nm, _) in enumerate(rows) if any(
+            w in nm.lower() for w in ("conv", "xmma", "implicit_gemm",
+                                      "cudnn"))]
+        top = max([10] + [min(v) + 1 for v in ours.values() if v])
+        print(f"sharded: profiled round 1 (round-1.pt.trace.json): "
+              f"{total:.3f} ms of kernels on the card, {len(rows)} kernel "
+              f"names; the top {top} by device time [{card}]", flush=True)
+        for nm, us in rows[:top]:
+            print(f"sharded:   {us / 1e3:9.3f} ms  x{count[nm]:<4d} "
+                  f"{nm[:90]}", flush=True)
+        per = {k: sum(count[rows[i][0]] for i in v) for k, v in ours.items()}
+        print(f"sharded: the profiled round's records of the port's "
+              f"kernels {per}, ranks "
+              f"{ {k: v[:1] for k, v in ours.items()} } (the launch "
+              f"counters, exact, say {2 * tau}/{2 * tau}/{3 * tau}); cuDNN "
+              f"convolutions at ranks {convs[:5]} [{card}]", flush=True)
+        if kernels and (not all(per.values()) or not convs
+                        or convs[0] >= 10):
+            # records, not launches: a profiler that ran earlier in the
+            # process can miss a window's first kernels (PERF.md, PR 11)
+            fail(f"sharded: the profiled round lacks a port kernel {per} "
+                 f"or a cuDNN convolution in its top 10 ({convs[:3]})")
+
+        # the supervisor over phase 8's watched configuration, per-shard
+        sup_dir = os.path.join(root, "supervised")
+        os.makedirs(sup_dir)
+        child = os.path.join(sup_dir, "child.py")
+        with open(child, "w") as f:
+            f.write(CHILD_SHARDED)
+        max_rounds = kill_after + 5  # evicted at kill_after + 3
+        child_spec = {"crop": crop, "batch": batch, "tau": tau,
+                      "n_classes": n_classes, "kill_after": kill_after,
+                      "max_rounds": max_rounds, "device": device,
+                      "solver": IMAGENET_SOLVER, "workdir": sup_dir,
+                      "pod_dir": os.path.join(sup_dir, "pod"),
+                      "ck": os.path.join(sup_dir, "ck")}
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sparknet_tpu_torch.parallel.supervise",
+             "--nproc", "1", "--poll-secs", "0", "--", sys.executable,
+             child, here, json.dumps(child_spec)],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        sup_wall = time.perf_counter() - t0
+        out = proc.stdout.splitlines()
+        sup_lines = [ln for ln in out if ln.startswith("supervise:")]
+        kids = [json.loads(ln.split(": ", 1)[1]) for ln in out
+                if ln.startswith("phase10-child: ")]
+        for ln in sup_lines:
+            print(f"sharded[supervised]: {ln} [{card}]", flush=True)
+        if proc.returncode != 0 or len(kids) != 2 or sup_lines[-1] != (
+                "supervise: launches 2, relaunches 1, strikes 0, code 0"):
+            fail(f"sharded[supervised]: exit {proc.returncode}, "
+                 f"{sup_lines}, children {kids}; stderr "
+                 f"{proc.stderr[-3000:]}")
+        boundary = kill_after + 3
+        first, second = kids
+        if first["code"] != 75 or first["relaunched"] or \
+                first["steps"].get(str(boundary)) is not True or \
+                second["code"] != 0 or not second["relaunched"] or \
+                not second["elastic_resume"] or second["rounds"] != \
+                max_rounds - boundary:
+            fail(f"sharded[supervised]: launches {kids}: want exit 75 with "
+                 f"a verified per-shard step {boundary}, then an ELASTIC "
+                 f"resume to round {max_rounds} and exit 0")
+        for i, k in enumerate(kids):
+            ex = k["executed"]
+            print(f"sharded[supervised]: launch {i + 1}: exit {k['code']}, "
+                  f"{k['rounds']} rounds, {ex} executed steps, launches "
+                  f"{k['counts']}, process start to train() "
+                  f"{k['t_train0'] - k['t_proc0']:.2f}s, train() "
+                  f"{k['t_end'] - k['t_train0']:.2f}s, per-shard steps "
+                  f"{k['steps']}" + (", ELASTIC resume" if
+                                     k["elastic_resume"] else "")
+                  + f" [{card}]", flush=True)
+            if kernels and k["counts"] != {
+                    "lrn_fwd": 2 * ex, "lrn_fwd_scale": 0,
+                    "lrn_bwd": 2 * ex, "maxpool_bwd": 3 * ex}:
+                fail(f"sharded[supervised] launch {i + 1}: launches "
+                     f"{k['counts']} for {ex} executed steps")
+            launches[f"supervised {i + 1}"] = k["counts"]
+            steps_of[f"supervised {i + 1}"] = ex
+        relaunch_s = second["t_train0"] - first["t_end"]
+        print(f"sharded[supervised]: the supervisor's wall {sup_wall:.2f}s "
+              f"for two launches; relaunch {relaunch_s:.2f}s from the first "
+              f"launch's exit 75 to the second's train() (process start, "
+              f"imports, the card, the data) [{card}]", flush=True)
+
+        # serving: the per-shard step 4 against the monolithic step 4
+        precision.set_policy("float32")
+        spec1 = zoo.caffenet(batch=1, crop=crop, n_classes=n_classes)
+        x = {"data": np.ascontiguousarray(data[:1]), "label": labels[:1]}
+        probs = {}
+        for layout in ("on", "off"):
+            net = TorchNet(spec1, seed=5, device=device)
+            m = ModelManager(net, checkpoint_dir=dirs[layout])
+            t0 = time.perf_counter()
+            got = m.load_initial()
+            t_install = time.perf_counter() - t0
+            if got != 4:
+                fail(f"sharded[serve]: the {layout} manager installed "
+                     f"{got}: {m.last_error}")
+            probs[layout] = torch.from_numpy(net.forward(x)["prob"])
+            print(f"sharded[serve]: the {layout!r} layout's step 4 "
+                  f"installed in {t_install:.3f}s [{card}]", flush=True)
+        if not (torch.equal(probs["on"], probs["off"])
+                and bool(torch.isfinite(probs["on"]).all())):
+            fail("sharded[serve]: the per-shard step's bucket-1 prob "
+                 "differs from the monolithic step's")
+        print(f"sharded[serve]: bucket-1 prob from the per-shard step 4 "
+              f"torch.equal to the monolithic step 4's [{card}]",
+              flush=True)
+    finally:
+        ckpt.save, ckpt.save_sharded = originals[:2]
+        ParallelTrainer.checkpoint_tree, \
+            ParallelTrainer.checkpoint_shards = originals[2:]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        precision.set_policy("float32")
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "steps": steps_of, "timed": timed,
+            "relaunch_s": relaunch_s}
+
+
 def _quantiles_ms(xs) -> str:
     ys = sorted(xs)
     if not ys:
@@ -2885,6 +3376,7 @@ def main() -> None:
         shutil.rmtree(corpus, ignore_errors=True)
     elastic = phase_elastic(card, train["warm_round_s"])
     http = phase_serve_http(card, serve["steady_img_s"])
+    sharded = phase_sharded(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -2916,6 +3408,8 @@ def main() -> None:
              k: c["lrn_fwd"] for k, c in stream["launches"].items()},
          "elastic_phase_launches": {
              k: c["lrn_fwd"] for k, c in elastic["launches"].items()},
+         "sharded_phase_launches": {
+             k: c["lrn_fwd"] for k, c in sharded["launches"].items()},
          "max_abs_err": max(agg["max_abs_err"], lrn_train["max_abs_err"]),
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
@@ -2943,6 +3437,8 @@ def main() -> None:
              k: c["lrn_bwd"] for k, c in stream["launches"].items()},
          "elastic_phase_launches": {
              k: c["lrn_bwd"] for k, c in elastic["launches"].items()},
+         "sharded_phase_launches": {
+             k: c["lrn_bwd"] for k, c in sharded["launches"].items()},
          "max_abs_err": lrn_train["max_abs_err"], **bwd,
          "timed_at": "norm1 + norm2, batch 256, bfloat16, recompute mode",
          "saved_scale_route_launches": train["saved_launches"]["lrn_bwd"],
@@ -2961,6 +3457,8 @@ def main() -> None:
              k: c["maxpool_bwd"] for k, c in stream["launches"].items()},
          "elastic_phase_launches": {
              k: c["maxpool_bwd"] for k, c in elastic["launches"].items()},
+         "sharded_phase_launches": {
+             k: c["maxpool_bwd"] for k, c in sharded["launches"].items()},
          "max_abs_err": pool["max_abs_err"], **mp["ties"],
          "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
                      "tie-heavy input",
@@ -2971,7 +3469,8 @@ def main() -> None:
         "checkpoint_phase_steps": ckp["steps"],
         "imagenet_phase_steps": inet["steps"],
         "stream_phase_steps": stream["steps"],
-        "elastic_phase_steps": elastic["steps"]}), flush=True)
+        "elastic_phase_steps": elastic["steps"],
+        "sharded_phase_steps": sharded["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -68,11 +68,13 @@ Usage (one process per card; a plain launch is a world of one):
     torchrun --nnodes 2 --nproc-per-node 4 --node-rank R \\
         --master-addr HOST --master-port PORT \\
         -m sparknet_tpu_torch.apps.imagenet_app --data-dir gs://B/imagenet \\
-        --stream always checkpoint_dir=s3://B/ck checkpoint_sharded=off ...
+        --stream always checkpoint_dir=s3://B/ck ...
 
 Exit code 75 is an elastic membership change (`ElasticRelaunch`, a
 SystemExit the loop raises at the τ boundary): relaunch at the new
-world size with `resume=true`.
+world size with `resume=true` — `python -m sparknet_tpu_torch.parallel.
+supervise --nproc 4 -- python -m sparknet_tpu_torch.apps.imagenet_app
+...` does so by itself.
 """
 from __future__ import annotations
 

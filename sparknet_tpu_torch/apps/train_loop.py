@@ -63,17 +63,26 @@ thread.
 
 Checkpoints (`checkpoint_dir`) are the reference's replica layout on a
 local directory or a bucket prefix (gs://, s3://; a world over several
-machines needs a store every machine reads) (`parallel/trainer.py:
-checkpoint_tree`). Stage 1, on every
-rank, gathers the momentum and copies the state to host memory; rank 0
-then writes it (stage 2), inline or on the background writer
-(`checkpoint_async`). `resume` restarts at the newest step, with the
-health supervisor's state (`extra["health"]`). A nonfinite round, or a
-run of spikes, rolls back to the newest verified non-anomalous step with
-the learning rate scaled by `lr_backoff`; the prefetched round is
-dropped and the retried rounds draw another data window (round R of
-rollback generation g samples logical round R + g * 2**20, its transform
-generators keyed (seed, R + g * 2**20, g, t)).
+machines needs a store every machine reads), in one of two file layouts
+(`checkpoint_sharded`: "auto" is per-shard above one rank and monolithic
+at one, "on" per-shard at any size, "off" monolithic):
+  - per-shard (`utils/checkpoint.py:save_sharded`): stage 1, on every
+    rank, copies only that rank's rows off the card (`parallel/trainer.
+    py:checkpoint_shards`, no gather); above one rank the writers are
+    drained, rank 0 clears the step between two barriers
+    (`prepare_sharded_step`), then every rank writes its own shard file
+    (stage 2) and rank 0 commits the manifest;
+  - monolithic (`checkpoint_tree`): stage 1 gathers the momentum and
+    copies the state to host memory; rank 0 writes it alone.
+Stage 2 runs inline or on each rank's background writer
+(`checkpoint_async`). `resume` restarts at the newest step of either
+layout, with the health supervisor's state (`extra["health"]`). A
+nonfinite round, or a run of spikes, rolls back to the newest verified
+non-anomalous step with the learning rate scaled by `lr_backoff`; the
+prefetched round is dropped and the retried rounds draw another data
+window (round R of rollback generation g samples logical round
+R + g * 2**20, its transform generators keyed (seed, R + g * 2**20, g,
+t)).
 
 Telemetry, as the JAX loop's (`telemetry`, or a `status_port`, builds a
 per-run metrics registry that the phase timers, the throughput meter, the
@@ -110,25 +119,36 @@ the JAX package's relaunch branches:
     below `min_workers`, else `ElasticRelaunch` (exit 75);
   - several machines: the same without the boundary save — the relaunch
     resumes from the newest periodic step.
-The relaunched run resumes at its new size through
+Before it raises, each machine's local rank 0 writes the new membership
+where the relaunch supervisor asked (`parallel/elastic.py:
+write_relaunch_record`), and `parallel/supervise.py` relaunches at the
+size it implies. The relaunched run resumes at its new size through
 `ParallelTrainer.state_from_checkpoint` (the elastic resume, "ELASTIC
-resume" in the log; a rollback target of another size too): params
-exact, momentum reconstructed per `elastic.momentum_policy`; a fresh
-sampler over the new rank count is the JAX package's resharded one.
+resume" in the log, as after any supervised exit 75; a rollback target
+of another size too): params exact, momentum reconstructed per
+`elastic.momentum_policy`; a fresh sampler over the new rank count is
+the JAX package's resharded one.
+
+Observability levers, on rank 0: `trace_out` records the host spans
+(round_prep, h2d_prefetch, the phase timers' sample / train_round / h2d /
+dispatch / checkpoint / eval, checkpoint_write on the writer's thread)
+and a `flush` instant with round and loss per flushed round
+(`obs/trace.py`), written when the loop ends ("host trace written to
+..."); `profile_dir` runs round start_round + 1 under `torch.profiler`
+(`utils/profiling.py`: CPU and, on the card, CUDA activity) and exports
+its Chrome trace there.
 
 Not ported yet, and what the loop does with each:
   - settings that would change results raise NotImplementedError:
-    `trainer_impl="named"`, `state_sharding` other than "replicated", and
-    the per-shard checkpoint layout (`checkpoint_sharded="on"`, or "auto"
-    at more than one rank, where the reference writes one file per
-    shard);
+    `trainer_impl="named"` and `state_sharding` other than "replicated"
+    (ROADMAP A11);
   - levers that do not change the numbers are accepted and logged as not
     yet ported: `fused_boundary` (an eager round already averages right
-    after its last step), `compile_cache_dir`, `trace_out`, `history`,
-    `profile_dir`.
+    after its last step), `compile_cache_dir`, `history`.
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from collections import deque
@@ -150,7 +170,8 @@ from ..obs import trace as obs_trace
 from ..obs.http import StatusServer
 from ..obs.meta import register_build_info
 from ..obs.registry import MetricsRegistry
-from ..parallel.elastic import ElasticRelaunch, MembershipController
+from ..parallel.elastic import (RELAUNCHED_ENV, ElasticRelaunch,
+                                MembershipController, write_relaunch_record)
 from ..parallel.mesh import DataGroup, init_data_group, machine_topology
 from ..parallel.trainer import ParallelTrainer, TrainState
 from ..utils import checkpoint as ckpt
@@ -160,9 +181,9 @@ from ..utils.health import (HealthConfig, HealthMonitor, TrainingHealthError,
 from ..utils.heartbeat import HeartbeatWriter, worker_sort_key
 from ..utils.logger import Logger, default_logger
 from ..utils.metrics import PhaseTimers, ThroughputMeter
+from ..utils.profiling import maybe_trace
 
-_NOT_PORTED_LEVERS = ("fused_boundary", "compile_cache_dir", "trace_out",
-                      "history", "profile_dir")
+_NOT_PORTED_LEVERS = ("fused_boundary", "compile_cache_dir", "history")
 
 #: retried rounds sample a disjoint deterministic data window: round R on
 #: rollback generation g draws as logical round R + g * _RETRY_DATA_OFFSET
@@ -211,13 +232,12 @@ def check_config(cfg: RunConfig) -> list:
         "trainer_impl='named'": cfg.trainer_impl == "named",
         f"state_sharding={cfg.state_sharding!r}":
             cfg.state_sharding != "replicated",
-        "checkpoint_sharded='on' (per-shard checkpoint files)":
-            bool(cfg.checkpoint_dir) and cfg.checkpoint_sharded == "on",
     }
     bad = [k for k, on in refused.items() if on]
     if bad:
         raise NotImplementedError(
-            f"not ported to the PyTorch port yet: {', '.join(bad)}")
+            f"not ported to the PyTorch port yet: {', '.join(bad)} "
+            f"(ROADMAP A11)")
     if cfg.trainer_impl not in ("auto", "shard_map"):
         raise ValueError(f"unknown trainer_impl {cfg.trainer_impl!r}")
     if cfg.ops_interpret:
@@ -258,12 +278,6 @@ def train(cfg: RunConfig, spec: NetSpec, train_ds: ArrayDataset,
         if cfg.n_devices is not None and cfg.n_devices != group.size:
             raise ValueError(f"n_devices={cfg.n_devices}, but the data "
                              f"group has {group.size} ranks (one per card)")
-        if cfg.checkpoint_dir and cfg.checkpoint_sharded == "auto" and \
-                group.size > 1:
-            raise NotImplementedError(
-                f"checkpoint_sharded='auto' at {group.size} ranks means "
-                f"per-shard checkpoint files, which are not ported yet; "
-                f"set checkpoint_sharded=off for the monolithic layout")
         compute_health = cfg.health is not None and cfg.health.enabled
         elastic_tau = (cfg.elastic is not None and cfg.elastic.enabled
                        and cfg.elastic.tau_adapt)
@@ -427,7 +441,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         flat, start_round, resumed_extra = ckpt.restore_flat(ckdir)
         saved_n = trainer.saved_world(flat, resumed_extra)
         state = trainer.state_from_checkpoint(flat, resumed_extra, policy)
-        if saved_n == n:
+        if saved_n == n and os.environ.get(RELAUNCHED_ENV) != "1":
             log.log(f"resumed from checkpoint round {start_round}")
         else:
             log.log(f"ELASTIC resume from round {start_round}: {saved_n} "
@@ -625,6 +639,15 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                            n_members=len(decision["members"]))
         return decision
 
+    def leave_record(ev) -> None:
+        """The new membership, for the relaunch supervisor (one writer a
+        machine: its local rank 0)."""
+        if local_rank == 0:
+            path = write_relaunch_record(ev, n, machine, n_machines,
+                                         local_size)
+            if path is not None:
+                log.log(f"elastic: relaunch record written to {path}")
+
     def apply_resize(state, ev, rnd: int):
         """A membership change at this τ boundary: the JAX package's
         relaunch branches (module docstring). Always raises:
@@ -653,6 +676,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                     f"returns.")
             log.log(f"elastic: {what}; exit 75 to relaunch at the new "
                     f"size from the newest periodic checkpoint", rnd)
+            leave_record(ev)
             raise ElasticRelaunch(f"{what}; several machines relaunch at "
                                   f"the new size")
         ckpt_barrier()
@@ -677,6 +701,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                 f"to continue.")
         log.log(f"elastic: {what}; checkpointed round {rnd}, exit 75 to "
                 f"relaunch at the new size", rnd)
+        leave_record(ev)
         raise ElasticRelaunch(f"{what}; checkpointed round {rnd}")
 
     def prepare_round(rnd: int, retry_: int, first_pass: bool):
@@ -756,6 +781,9 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                 rnd_)
         log.metrics(rnd_, **kv)
         finite = bool(np.isfinite(loss))
+        if tracer is not None:
+            tracer.instant("flush", round=rnd_,
+                           loss=loss if finite else None)
         vitals.update(round=rnd_, loss=loss if finite else None,
                       status=cls or "ok", beat_ts=round(time.time(), 3))
         if g_round is not None:
@@ -858,6 +886,10 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
     rnd = start_round
     loop_completed = False
     tau_vec = None  # this round's per-rank τ budgets (tau_adapt)
+    # host spans of every thread on one timeline (process-wide; stopped
+    # and written in the finally below, after the writer drained)
+    tracer = (obs_trace.start_tracing()
+              if cfg.trace_out and rank == 0 else None)
     t_member = 0.0  # this round's boundary agreement, for the breakdown
     try:
         if elastic_cfg is not None:
@@ -917,7 +949,12 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             high_water = max(high_water, rnd)
             # a retried round keys its dropout masks anew as well
             key = (cfg.seed, rnd) + ((retry,) if retry else ())
-            with timers.phase("train_round"):
+            # profile one steady round (the first one builds and warms)
+            profile_this = (bool(cfg.profile_dir) and rank == 0
+                            and rnd == start_round + 1)
+            with maybe_trace(cfg.profile_dir if profile_this else None,
+                             label=f"round-{rnd}"), \
+                    timers.phase("train_round"):
                 tr_kw = ({} if tau_vec is None
                          else {"tau_by_worker": tau_vec})
                 state, loss = trainer.train_round(state, batches, key,
@@ -928,6 +965,8 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                     trainer.last_health)
                 if len(deferred) >= log_every:
                     flush_deferred(wait=False)
+            if profile_this:
+                log.log(f"profiler trace written to {cfg.profile_dir}", rnd)
             round_s = phase_delta("train_round")
             meter.add(cfg.tau * lb * n, round_s)
             breakdown = None
@@ -1018,6 +1057,18 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                 pod_srv.stop()
             if side is not None:
                 dist.destroy_process_group(side)
+            if tracer is not None:
+                # after the writer drained: its last checkpoint_write
+                # span is on the timeline. Observability: a failed write
+                # is logged, never raised
+                obs_trace.stop_tracing()
+                try:
+                    n_ev = tracer.write(cfg.trace_out)
+                    log.log(f"host trace written to {cfg.trace_out} "
+                            f"({n_ev} events; load in Perfetto or "
+                            f"chrome://tracing)")
+                except OSError as e:
+                    log.log(f"host trace write failed: {e}")
     if ckdir and start_round < cfg.max_rounds:
         # start_round >= max_rounds: the loop ran no round, and the
         # restored step is already the final state (a save now would also
@@ -1119,6 +1170,15 @@ def _seek_stream(source, extra: Dict[str, Any], log: Logger,
     log.log(f"stream resumed at {pos}")
 
 
+def _sharded_save_enabled(cfg: RunConfig, world: int) -> bool:
+    """cfg.checkpoint_sharded for a world of `world` ranks: "auto" is
+    per-shard above one rank and monolithic at one (where there is
+    nothing to split), "on" per-shard at any size (one shard file at one
+    rank), "off" the monolithic layout."""
+    knob = cfg.checkpoint_sharded  # check_config validated it
+    return knob == "on" or (knob == "auto" and world > 1)
+
+
 def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
                      state: TrainState, step: int, retain: bool = True,
                      source=None, last_round: Optional[int] = None,
@@ -1126,20 +1186,37 @@ def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
                      health_state: Optional[Dict[str, Any]] = None,
                      writer: Optional[ckpt.AsyncCheckpointWriter] = None
                      ) -> None:
-    """Two-stage save. Stage 1 (here, blocking, on every rank): the state
-    in the replica layout, copied to host memory the snapshot owns — the
-    next round updates the device buffers in place — and the stream
-    cursors after `last_round`, gathered. Stage 2 (serialize, digest,
-    persist, retain to 3) runs on rank 0 only: inline when `writer` is
-    None, else on the background writer. The bytes, digests and tags are
-    the same either way."""
-    tree = trainer.checkpoint_tree(state)
-    stream = _stream_rows(source, last_round, trainer.group, local_size)
-    if trainer.group.rank != 0:
+    """Two-stage save; every rank calls it. Stage 1 (here, blocking): the
+    state as host memory the snapshot owns — the next round updates the
+    device buffers in place — and the stream cursors after `last_round`,
+    gathered. Per-shard (`_sharded_save_enabled`): each rank snapshots
+    only its own rows (`checkpoint_shards`); above one rank every writer
+    is drained, and rank 0 clears the step between two barriers, before
+    any rank writes. Monolithic: the replica tree with the momentum
+    gathered (`checkpoint_tree`). Stage 2 (serialize, digest, persist;
+    retain to 3 on rank 0): every rank writes its own shard file, rank 0
+    commits the manifest; monolithic, rank 0 writes alone. Inline when
+    `writer` is None, else on the rank's background writer. The bytes,
+    digests and tags are the same either way."""
+    group = trainer.group
+    sharded = _sharded_save_enabled(cfg, group.size)
+    if sharded:
+        if group.size > 1:
+            if writer is not None:
+                writer.wait()  # the previous step's files are committed
+            group.barrier()
+            if group.rank == 0:
+                ckpt.prepare_sharded_step(cfg.checkpoint_dir, step)
+            group.barrier()
+        snapshot = trainer.checkpoint_shards(state)
+    else:
+        tree = trainer.checkpoint_tree(state)
+    stream = _stream_rows(source, last_round, group, local_size)
+    if group.rank != 0 and not sharded:
         return
 
     def persist() -> None:
-        extra: Dict[str, Any] = {"n_devices": trainer.group.size, "tp": 1,
+        extra: Dict[str, Any] = {"n_devices": group.size, "tp": 1,
                                  "publish_t": round(time.time(), 3)}
         if stream is not None:
             extra["stream"] = stream
@@ -1147,8 +1224,13 @@ def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
             extra["anomalous"] = True
         if health_state is not None:
             extra["health"] = health_state
-        ckpt.save(cfg.checkpoint_dir, tree, step=step, extra=extra)
-        if retain:
+        if sharded:
+            ckpt.save_sharded(
+                cfg.checkpoint_dir, snapshot, step=step, extra=extra,
+                metrics=writer.note_write if writer is not None else None)
+        else:
+            ckpt.save(cfg.checkpoint_dir, tree, step=step, extra=extra)
+        if retain and group.rank == 0:
             try:
                 ckpt.retain(cfg.checkpoint_dir, keep=3)
             except Exception as e:

@@ -3,10 +3,13 @@
 A copy of `sparknet_tpu/obs/trace.py` (pure Python). A device profiler
 answers "what did the device do"; this answers "where did the host's wall
 clock go" across threads. Code wraps its sections in `span("name")`
-context managers (here: the serve worker's forward and the weight
-install); each completed span becomes one Chrome `"X"` (complete) event
+context managers (the serve worker's forward and the weight install; the
+train loop's phase timers, round prep, H2D prefetch and the checkpoint
+writer); each completed span becomes one Chrome `"X"` (complete) event
 with `ts`/`dur` in microseconds and the recording thread as its `tid`,
-and `write()` produces a JSON file loadable in Perfetto / chrome://tracing.
+`instant` adds a zero-duration `"i"` mark (the train loop's per-round
+`flush`), and `write()` produces a JSON file loadable in Perfetto /
+chrome://tracing.
 
 Timestamps are epoch-anchored (epoch_at_start + perf_counter elapsed), so
 traces from different processes merge on one timeline.
@@ -48,10 +51,20 @@ class Tracer:
 
     def add_complete(self, name: str, t0_us: float, dur_us: float,
                      args: Optional[Dict[str, Any]] = None) -> None:
+        self._record({"name": name, "ph": "X", "cat": "host",
+                      "ts": round(t0_us, 3), "dur": round(dur_us, 3)}, args)
+
+    def instant(self, name: str, **args: Any) -> None:
+        """A zero-duration mark (scope: thread) — e.g. a log flush."""
+        self._record({"name": name, "ph": "i", "s": "t", "cat": "host",
+                      "ts": round(self.now_us(), 3)}, args)
+
+    def _record(self, ev: Dict[str, Any],
+                args: Optional[Dict[str, Any]]) -> None:
+        """Stamp `ev` with this process and thread and keep it (counted
+        as dropped beyond MAX_EVENTS)."""
         th = threading.current_thread()
-        ev = {"name": name, "ph": "X", "cat": "host",
-              "ts": round(t0_us, 3), "dur": round(dur_us, 3),
-              "pid": self.pid, "tid": th.ident}
+        ev.update(pid=self.pid, tid=th.ident)
         if args:
             ev["args"] = args
         with self._lock:
@@ -87,6 +100,11 @@ class Tracer:
 
 
 _active: Optional[Tracer] = None
+
+
+def active_tracer() -> Optional[Tracer]:
+    """The installed tracer, or None when tracing is off."""
+    return _active
 
 
 def start_tracing(tracer: Optional[Tracer] = None) -> Tracer:

@@ -37,10 +37,17 @@ writes the boundary checkpoint and raises `ElasticRelaunch` (exit 75);
 over several machines it raises without the boundary save and the
 relaunch resumes from the newest periodic step. Below `min_workers` it
 raises `TrainingHealthError` instead — degrade loudly, never hang. The
-relaunched run resumes elastically at its new size.
+relaunched run resumes elastically at its new size. Before it raises,
+each machine's local rank 0 writes the new membership to the file the
+relaunch supervisor (`parallel/supervise.py`) named in
+$SPARKNET_RELAUNCH_RECORD (`write_relaunch_record`, the port's own
+addition: the JAX package's launcher re-issues the same command), and
+the supervisor sizes the next launch from it.
 """
 from __future__ import annotations
 
+import json
+import os
 import random
 import time
 from collections import deque
@@ -53,6 +60,14 @@ from ..utils.heartbeat import worker_sort_key  # noqa: F401  (re-export)
 
 #: EX_TEMPFAIL — the launcher's "relaunch me at the new pod size" code
 ELASTIC_RELAUNCH_EXIT = 75
+
+#: set by the relaunch supervisor (`parallel/supervise.py`) on every
+#: launch: the file where each machine's local rank 0 writes the
+#: membership its exit 75 leaves behind (`write_relaunch_record`)
+RELAUNCH_RECORD_ENV = "SPARKNET_RELAUNCH_RECORD"
+#: set to "1" by the supervisor on a launch that follows an exit 75: the
+#: resume is an elastic one even at the same world size
+RELAUNCHED_ENV = "SPARKNET_ELASTIC_RELAUNCH"
 
 
 class ElasticRelaunch(SystemExit):
@@ -74,6 +89,29 @@ class ElasticRelaunch(SystemExit):
 
     def __str__(self) -> str:  # SystemExit.__str__ would print "75"
         return f"elastic relaunch requested: {self.reason}"
+
+
+def write_relaunch_record(ev: "MembershipEvent", world: int, machine: int,
+                          n_machines: int, local_size: int
+                          ) -> Optional[str]:
+    """Write the membership a relaunch leaves behind to the file named by
+    $SPARKNET_RELAUNCH_RECORD (a no-op without it): the event's epoch, the
+    new members and the previous ones (worker ids), and where this rank's
+    machine sat in the world that exits. The supervisor sizes the next
+    launch from it. Atomic (a temporary file renamed); returns the path."""
+    path = os.environ.get(RELAUNCH_RECORD_ENV)
+    if not path:
+        return None
+    previous = (set(ev.alive) - set(ev.joined)) | set(ev.dead)
+    rec = {"epoch": int(ev.epoch), "members": list(ev.alive),
+           "previous": sorted(previous, key=worker_sort_key),
+           "world": int(world), "machine": int(machine),
+           "n_machines": int(n_machines), "local_size": int(local_size)}
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(rec, f)
+    os.replace(tmp, path)
+    return path
 
 
 @dataclass(frozen=True)

@@ -14,14 +14,19 @@ several ranks without torchrun (the tests) passes `store_path`, `rank` and
 
 `machine_topology` places this rank among the machines: the JAX package's
 `host_id_count` (one process per host) in the port's terms.
+
+`plan_state_shards` is stage 1 of a per-shard checkpoint, the counterpart
+of the JAX package's `fetch_state_shards` for the port's replica layout:
+no gather, each rank holds only the pieces it owns.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -154,3 +159,63 @@ def machine_topology(group: Optional[DataGroup] = None
             f"{rank} has LOCAL_RANK {local_rank}): every machine must run "
             f"the same number of ranks, numbered machine by machine")
     return rank // local_size, world // local_size, local_rank, local_size
+
+
+def plan_state_shards(rows: Optional[Mapping[str, Any]] = None,
+                      replicated: Optional[Mapping[str, Any]] = None, *,
+                      rank: int, world: int) -> Dict[str, Any]:
+    """The piece plan of a per-shard checkpoint: the snapshot dict the
+    JAX package's `fetch_state_shards` returns for the same state on a
+    `world`-device mesh, with file f owned by rank f:
+    {"n_shards", "owners": {file: rank}, "process_index",
+    "process_count", "leaves": {key: {"shape", "dtype", "pieces":
+    [(file_id, offsets, shape, arr | None), ...]}}}.
+
+    - `rows`: {key: this rank's row of a [world, ...] leaf} (numpy, or a
+      CPU tensor for bfloat16, which keeps its bits). Row r lives on rank
+      r, so file r holds it at offset r: the JAX plan of a leaf sharded
+      along its leading axis over the data axis.
+    - `replicated`: {key: the whole value, which every rank holds}. Its
+      leading axis is cut into min(world, len) contiguous chunks whose
+      sizes differ by at most one, chunk j in file j; a scalar, an empty
+      leaf or a world of one is one piece in file 0 — the JAX plan of a
+      fully replicated leaf.
+
+    This rank's pieces carry their arrays; the others' carry None. No
+    collective: every rank knows the whole plan."""
+    leaves: Dict[str, Dict[str, Any]] = {}
+
+    def dtype_of(a):
+        if isinstance(a, torch.Tensor):
+            return ("bfloat16" if a.dtype == torch.bfloat16 else
+                    np.dtype(str(a.dtype).replace("torch.", "")))
+        return np.asarray(a).dtype
+
+    for key, row in (rows or {}).items():
+        if tuple(row.shape[:1]) != (1,):
+            raise ValueError(f"{key}: a row has leading dim 1, got "
+                             f"{tuple(row.shape)}")
+        rest = tuple(row.shape[1:])
+        leaves[key] = {"shape": (world,) + rest, "dtype": dtype_of(row),
+                       "pieces": [(f, (f,) + (0,) * len(rest), (1,) + rest,
+                                   row if f == rank else None)
+                                  for f in range(world)]}
+    for key, full in (replicated or {}).items():
+        shape = tuple(full.shape)
+        if shape == () or shape[0] == 0 or world == 1:
+            pieces = [(0, (0,) * len(shape), shape,
+                       full if rank == 0 else None)]
+        else:
+            pieces, lo = [], 0
+            for j, chunk in enumerate(np.array_split(
+                    np.arange(shape[0]), min(world, shape[0]))):
+                size = len(chunk)
+                pieces.append((j, (lo,) + (0,) * (len(shape) - 1),
+                               (size,) + shape[1:],
+                               full[lo:lo + size] if j == rank else None))
+                lo += size
+        leaves[key] = {"shape": shape, "dtype": dtype_of(full),
+                       "pieces": pieces}
+    return {"n_shards": int(world), "owners": {f: f for f in range(world)},
+            "process_index": int(rank), "process_count": int(world),
+            "leaves": leaves}

@@ -80,7 +80,7 @@ from ..model.layers import OpsImpl, seeded_generator
 from ..model.net import (CompiledNet, ParamTree, jax_param_shapes,
                          params_from_jax)
 from ..solver import SgdSolver, SolverConfig, SolverState, value_and_grad
-from .mesh import DataGroup
+from .mesh import DataGroup, plan_state_shards
 
 @dataclasses.dataclass
 class TrainState:
@@ -253,6 +253,26 @@ class ParallelTrainer:
                                                    state.momentum).items()}
         return {"params": params, "momentum": momentum,
                 "it": np.full((world,), state.it, np.int32)}
+
+    def checkpoint_shards(self, state: TrainState) -> Dict[str, Any]:
+        """Stage 1 of a per-shard save: this rank's row of every leaf of
+        the replica layout — its params, its momentum and `it` — as host
+        memory the snapshot owns, in the piece plan of
+        `mesh.plan_state_shards` (file r is rank r's). No collective and
+        no gather: each rank copies only its own state off the card. A
+        bfloat16 momentum stays a CPU tensor."""
+        with torch.no_grad():
+            p_host = state.flat_params.detach().to("cpu", copy=True)[None]
+            m_host = state.flat_momentum.detach().to("cpu", copy=True)[None]
+        rows: Dict[str, Any] = {"it": np.full((1,), state.it, np.int32)}
+        for kind, host, like in (("params", p_host, state.params),
+                                 ("momentum", m_host, state.momentum)):
+            for l, lp in self._host_leaves(host, like).items():
+                for p, t in lp.items():
+                    rows[f"{kind}/{l}/{p}"] = (
+                        t if t.dtype == torch.bfloat16 else t.numpy())
+        return plan_state_shards(rows, rank=self.group.rank,
+                                 world=self.group.size)
 
     def saved_world(self, flat: Mapping[str, Any],
                      extra: Mapping[str, Any]) -> int:

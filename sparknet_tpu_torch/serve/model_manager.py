@@ -13,8 +13,10 @@ batches:
     from the current weights; the bad step goes on a cooldown so the poll
     does not download it again every interval. A step that is gone by the
     time it is read (`CheckpointVanishedError`, e.g. `retain` pruned it)
-    is neither a rejection nor a cooldown. A per-shard step is rejected
-    with the NotImplementedError's message (ROADMAP A6b).
+    is neither a rejection nor a cooldown. A step of either file layout
+    (monolithic state.npz, or per-shard files under a manifest) restores
+    to the same flat map; a per-shard save whose meta.json has not
+    landed yet is not a checkpoint, so a poll skips it until it commits.
   - the swap itself runs on the server's worker thread between batches,
     so queued requests never race a half-installed weight set. The new
     tensors are copied to the card on the worker thread's current stream,
@@ -249,9 +251,6 @@ class ModelManager:
                 got = ckpt.restore_flat(self.checkpoint_dir, step=s)
             except ckpt.CheckpointCorruptError:
                 continue
-            except NotImplementedError as e:
-                self._reject(s, str(e))
-                continue
             flat, got_step, extra = got
             if not self.install(flat, got_step, extra, initial=True):
                 # the newest verified checkpoint failed the install gates:
@@ -342,12 +341,6 @@ class ModelManager:
                 return False
             except ckpt.CheckpointCorruptError as e:
                 self._reject(step, f"corrupt: {e}")
-                return False
-            except NotImplementedError as e:
-                # a layout the port cannot read yet (per-shard: ROADMAP
-                # A6b): a rejection with its reason, on the cooldown, and
-                # serving goes on
-                self._reject(step, str(e))
                 return False
             except Exception as e:
                 # NOT corruption: store trouble (ConnectionError, timeouts,

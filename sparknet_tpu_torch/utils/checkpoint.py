@@ -38,10 +38,28 @@ meta.json deleted while it was read) raises `CheckpointVanishedError`, a
 `CheckpointCorruptError`: the serving manager counts it as neither a
 rejection nor a cooldown.
 
-Not ported yet: a step in the per-shard layout (meta.json with
-"shards") raises NotImplementedError naming the layout and ROADMAP A6b
-when it is read — it is not reported as corrupt; the logical
-(NamedSharding) layout.
+The per-shard layout (`save_sharded`, the JAX package's gather-free
+save): instead of one state.npz, a step holds `shard-xxxxx-of-NNNNN.npz`
+files, one per rank, each carrying only the pieces that rank owns
+(`parallel/mesh.py:plan_state_shards`), and meta.json is a MANIFEST:
+{"format": "sharded", "global": {key: {"shape", "dtype"}}, "shards":
+[{"file", "entries": {key: [offsets, shape]}, "digest"}], ...} with a
+sha256 of each file's exact bytes, still written last as the commit
+marker. Extension dtypes are stored as uint views named in `ext_dtypes`,
+as in state.npz. A world of one commits atomically (local: a `.tmp-*`
+work directory renamed; bucket: orphans swept, an overwritten step
+decommitted and cleared, meta.json last). A world of several ranks
+writes every rank's files straight into `step-N/`: rank 0 clears the
+step first (`prepare_sharded_step`, fenced by barriers), each rank
+reports its digests in `commit-<rank>.json`, and rank 0 folds them into
+the manifest, commits meta.json and removes the reports. `restore_flat`,
+`verify`, `retain` and `newest_verified_step` read both layouts: the
+manifest loader fetches every shard in parallel, checks its digest and
+reassembles the same flat map a monolithic step of the same state
+gives, bit for bit.
+
+A step of the JAX package's logical (NamedSharding) layout restores to
+its flat map here too; the port's trainer refuses it (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -145,14 +163,15 @@ def _digest(arr: np.ndarray) -> str:
 # -- process-local "last step I wrote and verified" cache --------------------
 #
 # retain()'s protect scan would re-read and re-hash the newest step on every
-# save (on a bucket, a full ranged GET of state.npz). When that step is the
+# save (on a bucket, a full ranged GET of its state). When that step is the
 # one this process just wrote, its digests were computed from the bytes it
 # handed to the store, which commits them all or nothing; the cache records
-# the step with a fingerprint of its state.npz taken right after the write —
-# local (size, mtime_ns), bucket (size, generation|ETag) — and retain()
-# takes it as verified only while that fingerprint still matches. Anything
-# that rewrites the object falls back to the full verify.
-_written_verified: Dict[str, Tuple[int, Tuple]] = {}
+# the step with a fingerprint of every state file (state.npz, or each shard
+# file of a per-shard step) taken right after the write — local (size,
+# mtime_ns), bucket (size, generation|ETag) — and retain() takes it as
+# verified only while every fingerprint still matches. Anything that
+# rewrites one of the files falls back to the full verify.
+_written_verified: Dict[str, Tuple[int, Dict[str, Tuple]]] = {}
 
 
 def _cache_key(directory: str) -> str:
@@ -160,11 +179,12 @@ def _cache_key(directory: str) -> str:
             else os.path.abspath(directory))
 
 
-def _fingerprint(directory: str, step: int) -> Optional[Tuple]:
+def _fingerprint(directory: str, step: int,
+                 name: str = "state.npz") -> Optional[Tuple]:
     """("local", size, mtime_ns) or ("bucket", size, generation|ETag) of
-    the step's state.npz; None when unreadable (a cache miss, never
+    one file of the step; None when unreadable (a cache miss, never
     verified)."""
-    url = _join(directory, f"step-{int(step)}", "state.npz")
+    url = _join(directory, f"step-{int(step)}", name)
     try:
         if is_bucket_path(directory):
             size, gen = _bucket_ops(directory).stat(url, fresh=True)
@@ -175,19 +195,24 @@ def _fingerprint(directory: str, step: int) -> Optional[Tuple]:
     return ("local", st.st_size, st.st_mtime_ns)
 
 
-def _record_written(directory: str, step: int) -> None:
+def _record_written(directory: str, step: int,
+                    files: Tuple[str, ...] = ("state.npz",)) -> None:
     key = _cache_key(directory)
-    fp = _fingerprint(directory, step)
-    if fp is None:
-        _written_verified.pop(key, None)
-    else:
-        _written_verified[key] = (int(step), fp)
+    fps: Dict[str, Tuple] = {}
+    for name in files:
+        fp = _fingerprint(directory, step, name)
+        if fp is None:
+            _written_verified.pop(key, None)
+            return
+        fps[name] = fp
+    _written_verified[key] = (int(step), fps)
 
 
 def _written_verified_hit(directory: str, step: int) -> bool:
     cached = _written_verified.get(_cache_key(directory))
     return (cached is not None and cached[0] == int(step)
-            and _fingerprint(directory, step) == cached[1])
+            and all(_fingerprint(directory, step, name) == fp
+                    for name, fp in cached[1].items()))
 
 
 def invalidate_written_cache(directory: Optional[str] = None) -> None:
@@ -324,6 +349,14 @@ def _prepare_save(tree: Any, step: int, extra: Optional[Dict[str, Any]]
     return flat, meta
 
 
+def _committed(meta: Dict[str, Any]) -> bytes:
+    """meta.json's bytes, stamped with `commit_ts` just before the commit
+    marker is written: the instant the step becomes visible to readers
+    (the serving fleet's freshness counts from it)."""
+    meta["commit_ts"] = round(time.time(), 3)
+    return json.dumps(meta).encode()
+
+
 def save(directory: str, tree: Any, *, step: int,
          extra: Optional[Dict[str, Any]] = None) -> str:
     """Atomically write checkpoint `step-N` under `directory` (a local path
@@ -338,9 +371,8 @@ def save(directory: str, tree: Any, *, step: int,
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp-")
     try:
         np.savez(os.path.join(tmp, "state.npz"), **flat)
-        meta["commit_ts"] = round(time.time(), 3)
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(meta, f)
+        with open(os.path.join(tmp, "meta.json"), "wb") as f:
+            f.write(_committed(meta))
         final = os.path.join(directory, f"step-{int(step)}")
         if os.path.exists(final):
             shutil.rmtree(final)
@@ -365,9 +397,320 @@ def _save_bucket(directory: str, tree: Any, *, step: int,
     np.savez(buf, **flat)
     ops.delete(f"{final}/meta.json")  # decommit before overwrite
     ops.write_large(f"{final}/state.npz", buf.getbuffer())
-    meta["commit_ts"] = round(time.time(), 3)
-    ops.write(f"{final}/meta.json", json.dumps(meta).encode())
+    ops.write(f"{final}/meta.json", _committed(meta))
     _record_written(directory, step)
+    return final
+
+
+# -- the per-shard layout: shard files + a manifest commit marker -----------
+
+def shard_file_name(i: int, n: int) -> str:
+    return f"shard-{int(i):05d}-of-{int(n):05d}.npz"
+
+
+def _stored_dtype(dtype: Any) -> Tuple[np.dtype, Optional[str]]:
+    """(dtype as a shard file stores it, extension name or None): a
+    bfloat16 leaf is stored as its uint16 bit pattern."""
+    if dtype in ("bfloat16", torch.bfloat16):
+        return np.dtype(np.uint16), "bfloat16"
+    return np.dtype(dtype), None
+
+
+def sharded_nbytes(sharded: Dict[str, Any]) -> int:
+    """The state bytes a per-shard snapshot persists: the monolithic
+    layout's sum of array bytes (every piece is written once)."""
+    return sum(int(np.prod(rec["shape"])) *
+               _stored_dtype(rec["dtype"])[0].itemsize
+               for rec in sharded["leaves"].values())
+
+
+def _serialize_shard(pieces: Dict[str, Tuple[Tuple[int, ...], np.ndarray]]
+                     ) -> Tuple[memoryview, str]:
+    """One shard file's (npz bytes, sha256 hex). Keys are the flat state
+    keys; a file holds at most one piece per key, so the piece offsets
+    live in the manifest. The bytes are a view of the serialization
+    buffer (no second copy of a shard's state)."""
+    buf = io.BytesIO()
+    np.savez(buf, **{k: arr for k, (_, arr) in pieces.items()})
+    raw = buf.getbuffer()
+    return raw, hashlib.sha256(raw).hexdigest()
+
+
+def _sharded_meta(sharded: Dict[str, Any], step: int,
+                  extra: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The manifest meta.json of a per-shard save, without digests. The
+    piece plan is known to every rank, so every rank can build it; only
+    the per-file digests need the writers' reports."""
+    n = int(sharded["n_shards"])
+    files: Dict[int, Dict[str, list]] = {}
+    glob: Dict[str, Dict[str, Any]] = {}
+    ext_dtypes: Dict[str, str] = {}
+    for key, rec in sharded["leaves"].items():
+        dt, ext = _stored_dtype(rec["dtype"])
+        if ext is not None:
+            ext_dtypes[key] = ext
+        glob[key] = {"shape": [int(s) for s in rec["shape"]],
+                     "dtype": dt.name}
+        for fid, offsets, shape, _ in rec["pieces"]:
+            files.setdefault(int(fid), {})[key] = [
+                [int(o) for o in offsets], [int(s) for s in shape]]
+    meta: Dict[str, Any] = {
+        "step": int(step), "keys": sorted(sharded["leaves"]),
+        "format": "sharded", "global": glob,
+        "shards": [{"file": shard_file_name(fid, n), "entries": files[fid]}
+                   for fid in sorted(files)]}
+    if ext_dtypes:
+        meta["ext_dtypes"] = ext_dtypes
+    if extra:
+        meta["extra"] = extra
+    return meta
+
+
+def _shard_payloads(sharded: Dict[str, Any]
+                    ) -> Dict[int, Dict[str, Tuple[Tuple[int, ...],
+                                                   np.ndarray]]]:
+    """{file_id: {key: (offsets, array as stored)}} for the pieces this
+    rank holds (a piece of another rank has arr None)."""
+    out: Dict[int, Dict[str, Tuple[Tuple[int, ...], np.ndarray]]] = {}
+    for key, rec in sharded["leaves"].items():
+        for fid, offsets, _, arr in rec["pieces"]:
+            if arr is not None:
+                out.setdefault(int(fid), {})[key] = (
+                    tuple(offsets), _leaf_to_numpy(arr)[0])
+    return out
+
+
+def save_sharded(directory: str, sharded: Dict[str, Any], *, step: int,
+                 extra: Optional[Dict[str, Any]] = None,
+                 metrics=None, commit_timeout_s: float = 600.0) -> str:
+    """Write step-N in the per-shard layout from a snapshot of
+    `parallel.mesh.plan_state_shards` (or the JAX package's
+    `fetch_state_shards`): the shard files in parallel, then the manifest
+    with per-file digests last. A world of one writes every file; in a
+    world of several ranks every rank calls this with its own pieces and
+    rank 0 commits once every rank's digest report has landed (module
+    docstring; `prepare_sharded_step` must have run first). `metrics(
+    scope, seconds, ok)` is the per-write hook (AsyncCheckpointWriter.
+    note_write: "shard" per file, "meta" for the commit marker). A failed
+    write, a missing report or a file the manifest names but no rank
+    wrote raises."""
+    payloads = _shard_payloads(sharded)
+    meta = _sharded_meta(sharded, step, extra)
+    owners = {int(k): int(v) for k, v in sharded.get("owners", {}).items()}
+    me = int(sharded.get("process_index", 0))
+    n_procs = int(sharded.get("process_count", 1))
+
+    def timed_write(scope, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except BaseException:
+            if metrics is not None:
+                metrics(scope, time.perf_counter() - t0, ok=False)
+            raise
+        if metrics is not None:
+            metrics(scope, time.perf_counter() - t0, ok=True)
+
+    files = {shard_file_name(fid, sharded["n_shards"]): pieces
+             for fid, pieces in payloads.items()}
+    if n_procs == 1:
+        if is_bucket_path(directory):
+            return _commit_sharded_bucket(directory, step, files, meta,
+                                          timed_write)
+        return _commit_sharded_local(directory, step, files, meta,
+                                     timed_write)
+    return _commit_sharded_multiproc(directory, step, files, meta, owners,
+                                     me, timed_write, commit_timeout_s)
+
+
+def _parallel_file_writes(files: Dict[str, Dict], write_one,
+                          timed_write) -> Dict[str, str]:
+    """Serialize and write every shard file on a thread pool (np.savez,
+    sha256 and the store's I/O all release the GIL); returns {file name:
+    sha256 of the bytes written}."""
+    if not files:
+        return {}
+
+    def one(name, pieces):
+        raw, digest = _serialize_shard(pieces)
+        timed_write("shard", lambda: write_one(name, raw))
+        return name, digest
+
+    with ThreadPoolExecutor(min(8, len(files)),
+                            thread_name_prefix="ckpt-shard") as ex:
+        futs = [ex.submit(one, name, pieces)
+                for name, pieces in sorted(files.items())]
+        return dict(f.result() for f in futs)
+
+
+def _stamp_digests(meta: Dict[str, Any], digests: Dict[str, str]) -> None:
+    for rec in meta["shards"]:
+        if rec["file"] not in digests:
+            raise RuntimeError(
+                f"sharded checkpoint step-{meta['step']}: manifest file "
+                f"{rec['file']} was never written")
+        rec["digest"] = digests[rec["file"]]
+
+
+def _commit_sharded_local(directory: str, step: int, files, meta,
+                          timed_write) -> str:
+    """A world of one on a local directory: the files and meta.json in a
+    `.tmp-*` work directory, renamed to step-N in one step."""
+    os.makedirs(directory, exist_ok=True)
+    _sweep_stale_tmp(directory, current_step=step)
+    tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp-")
+    try:
+        def write_one(name, raw):
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(raw)
+
+        _stamp_digests(meta, _parallel_file_writes(files, write_one,
+                                                   timed_write))
+
+        timed_write("meta", lambda: write_one("meta.json",
+                                              _committed(meta)))
+        final = os.path.join(directory, f"step-{int(step)}")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _record_written(directory, step, files=tuple(sorted(files)))
+    return final
+
+
+def _commit_sharded_bucket(directory: str, step: int, files, meta,
+                           timed_write) -> str:
+    """A world of one on a bucket: orphans swept (a meta-less step loses
+    every file), an overwritten step decommitted and its old files
+    deleted (a wider save's extra shards must not pair with the new
+    manifest), the shards uploaded in parallel, meta.json last."""
+    ops = _bucket_ops(directory)
+    final = _join(directory, f"step-{int(step)}")
+    listing = _bucket_step_files(directory)
+    _sweep_bucket_orphans(directory, ops, listing)
+    step_files = listing.get(int(step), set())
+    if "meta.json" in step_files:
+        ops.delete(f"{final}/meta.json")  # decommit first, unguarded
+        for f in step_files - {"meta.json"}:
+            try:
+                ops.delete(f"{final}/{f}")
+            except Exception:
+                pass  # the step is meta-less now: the next sweep retries
+
+    def write_one(name, raw):
+        ops.write_large(f"{final}/{name}", raw)
+
+    _stamp_digests(meta, _parallel_file_writes(files, write_one,
+                                               timed_write))
+
+    timed_write("meta", lambda: ops.write(f"{final}/meta.json",
+                                          _committed(meta)))
+    _record_written(directory, step, files=tuple(sorted(files)))
+    return final
+
+
+def prepare_sharded_step(directory: str, step: int) -> None:
+    """Stage-1 cleanup of a per-shard save in a world of several ranks,
+    run by rank 0 between two barriers (so no rank has written a fresh
+    file this could delete): decommit an overwritten step's meta.json
+    first (a failure raises: never an old manifest over new shards), then
+    delete every other file of the step — a crashed save's commit
+    reports, a wider save's shard files — and sweep meta-less orphan
+    steps."""
+    if is_bucket_path(directory):
+        ops = _bucket_ops(directory)
+        listing = _bucket_step_files(directory)
+        for f in sorted(listing.get(int(step), set()),
+                        key=lambda f: f != "meta.json"):  # meta first
+            try:
+                ops.delete(_join(directory, f"step-{int(step)}", f))
+            except Exception:
+                if f == "meta.json":
+                    raise
+        _sweep_bucket_orphans(directory, ops, {
+            s: fs for s, fs in listing.items() if s != int(step)})
+        return
+    step_dir = _join(directory, f"step-{int(step)}")
+    if os.path.isdir(step_dir):
+        meta = os.path.join(step_dir, "meta.json")
+        if os.path.exists(meta):
+            os.remove(meta)
+        shutil.rmtree(step_dir, ignore_errors=True)
+    _sweep_stale_tmp(directory, current_step=step)
+
+
+def _commit_sharded_multiproc(directory: str, step: int, files, meta,
+                              owners, me, timed_write,
+                              commit_timeout_s: float) -> str:
+    """A world of several ranks: each rank writes its shard files
+    straight under step-N and a `commit-<rank>.json` digest report; rank
+    0 polls for every owner's report (up to `commit_timeout_s`, then
+    raises and leaves the step uncommitted), stamps the digests, commits
+    meta.json and deletes the reports. A rank killed anywhere leaves a
+    meta-less step that the next save's `prepare_sharded_step` sweeps."""
+    final = _join(directory, f"step-{int(step)}")
+    if is_bucket_path(directory):
+        ops = _bucket_ops(directory)
+
+        def write_one(name, raw):
+            if len(raw) > (1 << 20):
+                ops.write_large(f"{final}/{name}", raw)
+            else:
+                ops.write(f"{final}/{name}", bytes(raw))
+
+        def read_one(name):
+            return ops.read(f"{final}/{name}")
+
+        def delete_one(name):
+            ops.delete(f"{final}/{name}")
+    else:
+        os.makedirs(final, exist_ok=True)
+
+        def write_one(name, raw):
+            tmp = f"{os.path.join(final, name)}.tmp-{os.getpid()}"
+            with open(tmp, "wb") as f:
+                f.write(raw)
+            os.replace(tmp, os.path.join(final, name))
+
+        def read_one(name):
+            with open(os.path.join(final, name), "rb") as f:
+                return f.read()
+
+        def delete_one(name):
+            os.remove(os.path.join(final, name))
+
+    digests = _parallel_file_writes(files, write_one, timed_write)
+    write_one(f"commit-{int(me)}.json", json.dumps(digests).encode())
+    if me != 0:
+        return final
+    expected = sorted(set(owners.values()))
+    reported: Dict[str, str] = {}
+    deadline = time.monotonic() + commit_timeout_s
+    for p in expected:
+        while True:
+            try:
+                reported.update(json.loads(read_one(f"commit-{p}.json")))
+                break
+            except Exception:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"sharded checkpoint step-{step}: rank {p} never "
+                        f"reported its shard digests within "
+                        f"{commit_timeout_s}s — the step stays "
+                        f"uncommitted (not-a-checkpoint)")
+                time.sleep(0.05)
+    _stamp_digests(meta, reported)
+
+    timed_write("meta", lambda: write_one("meta.json", _committed(meta)))
+    for p in expected:
+        try:
+            delete_one(f"commit-{p}.json")
+        except Exception:
+            pass  # harmless residue inside a committed step
+    _record_written(directory, step,
+                    files=tuple(sorted(r["file"] for r in meta["shards"])))
     return final
 
 
@@ -441,9 +784,11 @@ def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], int,
             f"{path}: meta.json missing/unreadable — never committed or "
             f"retention-pruned")
     if "shards" in meta:
-        raise NotImplementedError(
-            f"{path}: a per-shard checkpoint (checkpoint_sharded layout); "
-            f"reading per-shard steps is not ported yet (ROADMAP A6b)")
+        try:
+            return _load_sharded(path, meta)
+        except (KeyError, TypeError, ValueError) as e:
+            raise CheckpointCorruptError(
+                f"{path}: malformed per-shard manifest: {e!r}") from e
     try:
         if is_bucket_path(path):
             # one ranged stream with reconnect-resume, copied into ONE
@@ -486,10 +831,111 @@ def _load_checkpoint(path: str) -> Tuple[Dict[str, Any], int,
                 f"corrupted at rest or in transit")
     for key, name in meta.get("ext_dtypes", {}).items():
         flat[key] = _from_stored(flat[key], name)
+    return flat, int(meta["step"]), _extra_with_commit(meta)
+
+
+def _extra_with_commit(meta: Dict[str, Any]) -> Dict[str, Any]:
+    """The step's `extra` with the manifest's `commit_ts` folded in."""
     extra = dict(meta.get("extra") or {})
     if "commit_ts" in meta:
         extra.setdefault("commit_ts", meta["commit_ts"])
-    return flat, int(meta["step"]), extra
+    return extra
+
+
+def _load_sharded(path: str, meta: Dict[str, Any]
+                  ) -> Tuple[Dict[str, Any], int, Dict[str, Any]]:
+    """Load and verify a per-shard step: every manifest file fetched in
+    parallel, its sha256 recomputed over the stored bytes, the pieces
+    reassembled into the flat map a monolithic step of the same state
+    gives, bit for bit. A missing, tampered or unparseable shard, an
+    unknown or missing key, a piece of the wrong shape and a key the
+    pieces do not cover exactly raise CheckpointCorruptError; store
+    trouble (ConnectionError, a non-404 HTTPError) propagates."""
+    ops = _bucket_ops(path) if is_bucket_path(path) else None
+
+    def load_one(rec: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        name = rec["file"]
+        try:
+            if ops is not None:
+                stream = ops.open_stream(f"{path}/{name}")
+                try:
+                    buf = io.BytesIO()
+                    shutil.copyfileobj(stream, buf, 1 << 20)
+                    raw = buf.getvalue()
+                finally:
+                    stream.close()
+            else:
+                with open(os.path.join(path, name), "rb") as f:
+                    raw = f.read()
+        except (ConnectionError, TimeoutError):
+            raise  # store trouble, not corruption
+        except urllib.error.HTTPError as e:
+            if e.code == 404:
+                raise CheckpointCorruptError(
+                    f"{path}: shard {name} missing: {e}") from e
+            raise
+        except OSError as e:
+            raise CheckpointCorruptError(
+                f"{path}: shard {name} unreadable: {e}") from e
+        want = rec.get("digest")
+        if want:
+            got = hashlib.sha256(raw).hexdigest()
+            if got != want:
+                raise CheckpointCorruptError(
+                    f"{path}: digest mismatch on shard {name} (stored "
+                    f"{want[:12]}…, recomputed {got[:12]}…) — bytes were "
+                    f"corrupted at rest or in transit")
+        try:
+            with np.load(io.BytesIO(raw)) as z:
+                return {k: z[k] for k in z.files}
+        except Exception as e:
+            raise CheckpointCorruptError(
+                f"{path}: shard {name} unparseable: {e}") from e
+
+    shards = meta["shards"]
+    with ThreadPoolExecutor(max(1, min(8, len(shards))),
+                            thread_name_prefix="ckpt-shard-read") as ex:
+        loaded = list(ex.map(load_one, shards))
+    glob = meta.get("global", {})
+    flat: Dict[str, Any] = {}
+    filled: Dict[str, int] = {}
+    for rec, data in zip(shards, loaded):
+        for key, (offsets, shape) in rec["entries"].items():
+            if key not in glob:
+                raise CheckpointCorruptError(
+                    f"{path}: shard {rec['file']} carries unknown key "
+                    f"{key!r}")
+            if key not in data:
+                raise CheckpointCorruptError(
+                    f"{path}: shard {rec['file']} missing key {key!r}")
+            piece = data[key]
+            if tuple(piece.shape) != tuple(shape):
+                raise CheckpointCorruptError(
+                    f"{path}: shard {rec['file']} piece {key!r} shape "
+                    f"{piece.shape} != manifest {tuple(shape)}")
+            g = glob[key]
+            if key not in flat:
+                flat[key] = np.empty(tuple(g["shape"]), np.dtype(g["dtype"]))
+                filled[key] = 0
+            if piece.ndim == 0:
+                flat[key] = piece
+                filled[key] += 1
+            else:
+                flat[key][tuple(slice(o, o + n) for o, n in
+                                zip(offsets, piece.shape))] = piece
+                filled[key] += int(np.prod(piece.shape))
+    for key in meta.get("keys", ()):
+        g = glob.get(key)
+        want_n = (1 if g is None or not g["shape"]
+                  else int(np.prod(g["shape"])))
+        if filled.get(key, 0) != want_n:
+            raise CheckpointCorruptError(
+                f"{path}: key {key!r} covered {filled.get(key, 0)} of "
+                f"{want_n} elements across the manifest — incomplete or "
+                f"overlapping shards")
+    for key, name in meta.get("ext_dtypes", {}).items():
+        flat[key] = _from_stored(flat[key], name)
+    return flat, int(meta["step"]), _extra_with_commit(meta)
 
 
 def restore_flat(directory: str, step: Optional[int] = None
@@ -519,9 +965,9 @@ def restore_flat(directory: str, step: Optional[int] = None
 
 
 def verify(path: str) -> bool:
-    """True when the step directory `path` is complete and its recorded
-    digests match the stored bytes (vacuously true for digest-less steps
-    that load). A per-shard step raises NotImplementedError."""
+    """True when the step directory `path` (either layout) is complete and
+    its recorded digests match the stored bytes (vacuously true for
+    digest-less steps that load). Store trouble propagates."""
     try:
         _load_checkpoint(path)
         return True

@@ -202,18 +202,13 @@ class RunConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 25          # rounds
     checkpoint_async: bool = True
-    # SHARDED checkpoint layout (r8): each worker writes/reads only its
-    # own NamedSharding shard in parallel (shard-k-of-n.npz files + a
-    # manifest with per-shard digests in meta.json, still committed
-    # LAST) instead of gathering the full state to one host — save time
-    # O(1/n_workers), stage-1 blocking never materializes the full
-    # state, and the state no longer has to fit one host's RAM on the
-    # save side. Restores read BOTH layouts transparently (bit-identical
-    # flat map), so sharded<->monolithic resume is exact in all
-    # directions. "auto" (default): sharded for multi-device layer-IR
-    # trainers, monolithic elsewhere (graph backend, single device);
-    # "on" forces, "off" restores the pre-r8 monolithic fetch_global
-    # path wholesale.
+    # per-shard checkpoint layout: each rank writes only its own rows
+    # (shard-k-of-n.npz files + a manifest with per-shard digests in
+    # meta.json, still committed LAST) instead of rank 0 writing the
+    # gathered state. Restores read BOTH layouts (bit-identical flat
+    # map), so a resume across layouts is exact. "auto" (default):
+    # per-shard above one rank, monolithic at one; "on" per-shard at any
+    # size; "off" the monolithic layout.
     checkpoint_sharded: str = "auto"
     resume: bool = True
     # training health supervisor: anomaly classification (spike/nonfinite),
@@ -239,10 +234,10 @@ class RunConfig:
     # from EVERY training process (since the pod PR — each worker is its
     # own scrape surface, the raw feed of pod aggregation; 0 = ephemeral,
     # and co-located processes on one host MUST use 0 or distinct ports —
-    # the bound address lands on cfg.status_address). trace_out captures host-side
-    # spans (round loop / prefetch / async checkpoint writer lanes) into
-    # a Chrome-trace-event JSON loadable in Perfetto next to the
-    # jax.profiler device trace.
+    # the bound address lands on cfg.status_address). trace_out captures
+    # host-side spans (round loop / prefetch / async checkpoint writer
+    # lanes) into a Chrome-trace-event JSON loadable in Perfetto next to
+    # the profile_dir device trace.
     # status_host defaults to loopback (scrape via SSH tunnel / sidecar);
     # set "0.0.0.0" for a cross-host Prometheus to reach it directly.
     # status_address is OUTPUT, not input: run_loop writes the bound
@@ -291,8 +286,8 @@ class RunConfig:
     # just flushed in batches.
     log_every: int = 1
     seed: int = 0
-    # jax.profiler capture: trace ONE steady-state round (start_round+1,
-    # skipping the compile round) into this directory (SURVEY §5.1)
+    # torch.profiler capture (utils/profiling.py): trace ONE steady round
+    # (start_round+1, skipping the warm-up round) into this directory
     profile_dir: Optional[str] = None
 
     def __post_init__(self) -> None:

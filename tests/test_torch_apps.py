@@ -31,6 +31,7 @@ from sparknet_tpu_torch.data.cifar import write_synthetic
 from sparknet_tpu_torch.data.dataset import ArrayDataset
 from sparknet_tpu_torch.model.net import CompiledNet, params_from_jax
 from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+from sparknet_tpu_torch.utils import checkpoint as ckpt
 from sparknet_tpu_torch.utils.config import ElasticConfig, RunConfig
 from sparknet_tpu_torch.utils.logger import Logger
 from test_torch_train import jax_params
@@ -99,8 +100,6 @@ def test_train_matches_the_jax_train(cifar_dir, tmp_path, monkeypatch):
 
 
 REFUSED = {
-    "checkpoint_sharded=on": dict(checkpoint_dir="ck",
-                                  checkpoint_sharded="on"),
     "trainer_impl": dict(trainer_impl="named"),
     "state_sharding": dict(state_sharding="momentum"),
 }
@@ -116,16 +115,20 @@ def test_unported_settings_that_change_results_raise(what, tmp_path):
     assert not torch.distributed.is_initialized()
 
 
-@pytest.mark.parametrize("what", ["elastic", "heartbeat_path"])
+@pytest.mark.parametrize("what", ["elastic", "heartbeat_path",
+                                  "checkpoint_sharded=on"])
 def test_settings_ported_since_the_refusals_act(what, tmp_path):
-    """`elastic` and `heartbeat_path` were refused until the port had
-    membership and heartbeats: now a run with them trains and writes
-    them."""
+    """`elastic`, `heartbeat_path` and `checkpoint_sharded="on"` were
+    refused until the port had membership, heartbeats and the per-shard
+    layout: now a run with them trains and writes them."""
     kw = dict(heartbeat_path=str(tmp_path / "hb.json"))
     if what == "elastic":
         kw = dict(elastic=ElasticConfig(enabled=True, poll_interval_s=0.0),
                   pod_dir=str(tmp_path / "pod"),
                   checkpoint_dir=str(tmp_path / "ck"))
+    if what == "checkpoint_sharded=on":
+        kw.update(checkpoint_dir=str(tmp_path / "ck"),
+                  checkpoint_sharded="on")
     cfg = RunConfig(workdir=str(tmp_path), max_rounds=2, tau=1,
                     local_batch=2, eval_every=0, **kw)
     ds = ArrayDataset({"data": torch.zeros(8, 3, 32, 32).numpy(),
@@ -134,14 +137,21 @@ def test_settings_ported_since_the_refusals_act(what, tmp_path):
     train(cfg, zoo.cifar10_quick(batch=2), ds, device="cpu", logger=log)
     log.close()
     assert not torch.distributed.is_initialized()
-    path = (str(tmp_path / "hb.json") if what == "heartbeat_path" else
-            str(tmp_path / "pod" / "worker-000.heartbeat.json"))
+    path = (str(tmp_path / "pod" / "worker-000.heartbeat.json")
+            if what == "elastic" else str(tmp_path / "hb.json"))
     beat = json.load(open(path))
     assert (beat["role"], beat["status"], beat["step"]) == \
         ("train", "done", 2)
     if what == "elastic":
         assert beat["membership_epoch"] == 0 and beat["n_members"] == 1
         assert "elastic membership: ['0']" in open(tmp_path / "l.txt").read()
+    if what == "checkpoint_sharded=on":
+        step = tmp_path / "ck" / "step-2"
+        meta = json.load(open(step / "meta.json"))
+        assert meta["format"] == "sharded"
+        assert [s["file"] for s in meta["shards"]] == \
+            ["shard-00000-of-00001.npz"]
+        assert ckpt.verify(str(step))
 
 
 @pytest.mark.parametrize("knob,value", [("lrn_impl", "fused"),

@@ -173,18 +173,34 @@ def test_anomalous_checkpoints_skipped_by_rollback_selector(tmp_path):
     assert step == 1 and "commit_ts" in extra
 
 
-def test_a_per_shard_step_is_refused_not_reported_corrupt(tmp_path):
+def test_a_per_shard_step_without_its_shard_is_corrupt_and_skipped(
+        tmp_path):
+    """The manifest names a shard file that is not there, or names none:
+    corrupt (not vanished), so every reader falls back to the previous
+    step."""
     d = tmp_path / "ck"
     ckpt.save(str(d), {"a": np.zeros(2)}, step=1)
     os.makedirs(d / "step-2")
     (d / "step-2" / "meta.json").write_text(json.dumps(
-        {"step": 2, "keys": ["a"], "shards": [
-            {"file": "shard-00000-of-00001.npz", "entries": {}}]}))
-    for call in (lambda: ckpt.restore_flat(str(d)),
-                 lambda: ckpt.verify(str(d / "step-2")),
-                 lambda: ckpt.restore_newest_verified(str(d))):
-        with pytest.raises(NotImplementedError, match="per-shard"):
-            call()
+        {"step": 2, "keys": ["a"], "format": "sharded",
+         "global": {"a": {"shape": [2], "dtype": "float64"}},
+         "shards": [{"file": "shard-00000-of-00001.npz",
+                     "entries": {"a": [[0], [2]]}}]}))
+    with pytest.raises(ckpt.CheckpointCorruptError, match="shard") as e:
+        ckpt.restore_flat(str(d), step=2)
+    assert not isinstance(e.value, ckpt.CheckpointVanishedError)
+    assert not ckpt.verify(str(d / "step-2"))
+    with pytest.warns(RuntimeWarning, match="falling back"):
+        assert ckpt.restore_flat(str(d))[1] == 1
+    assert ckpt.restore_newest_verified(str(d))[1] == 1
+    assert ckpt.newest_verified_step(str(d)) == 1
+    # a manifest without its file names is corrupt the same way
+    (d / "step-2" / "meta.json").write_text(json.dumps(
+        {"step": 2, "keys": ["a"], "shards": [{"entries": {}}]}))
+    with pytest.raises(ckpt.CheckpointCorruptError, match="malformed"):
+        ckpt.restore_flat(str(d), step=2)
+    assert not ckpt.verify(str(d / "step-2"))
+    assert ckpt.newest_verified_step(str(d)) == 1
 
 
 # -- the writers ------------------------------------------------------------

@@ -27,6 +27,9 @@ port always relaunches (`apps/train_loop.py`).
   at the rejoin boundary; 2 ranks resume and finish. Every round's loss
   within rtol 1e-4 of JAX's, the final params within 1e-4 × max |JAX| +
   1e-6.
+- The same relaunch on the default layout ("auto"): the two ranks write
+  the boundary step per shard and the relaunched rank resumes from it,
+  every loss and resize event equal to the monolithic chain's.
 - The loop over two machines (4 gloo ranks, `LOCAL_WORLD_SIZE=2`):
   machine 1's beats go stale; every rank raises at the same round and no
   boundary step is written; below `min_workers`, TrainingHealthError.
@@ -621,6 +624,7 @@ def port_elastic_runs(tmp_path_factory, jax_elastic_run):
     res["finish"] = run("finish", 2, True, {})
     res["steps_after_evict"] = steps_after_evict
     res["ck"] = str(root / "ck")
+    res["params"] = params
     return res
 
 
@@ -699,6 +703,67 @@ def test_every_round_and_the_final_params_match_jax(port_elastic_runs,
         for l, lp in conv.items():
             for p, a in lp.items():
                 _close(a, jax_elastic_run["params"][l][p])
+
+
+@pytest.fixture(scope="module")
+def port_elastic_auto(tmp_path_factory, port_elastic_runs):
+    """The chain's first two runs on the default layout ("auto": the two
+    ranks write a per-shard boundary step), from the same params."""
+    root = tmp_path_factory.mktemp("port_elastic_auto")
+    params = port_elastic_runs["params"]
+    base = dict(_loop_cfg(root, None), checkpoint_sharded="auto")
+    out = {}
+    for name, world, resume, plan in (
+            ("evict", 2, False, {"beat1_until": KILL_AT,
+                                 "kill1_at": KILL_AT}),
+            ("rejoin", 1, True, {"rejoin1": True})):
+        cfg = dict(base, workdir=str(root / name), resume=resume,
+                   elastic=ElasticConfig(**_elastic_kw()),
+                   solver=SolverConfig(**SOLVER))
+        os.makedirs(cfg["workdir"])
+        runs = [{"name": name, "cfg": cfg, "plan": plan}]
+        if world == 1:
+            torch_elastic_worker.loop(0, 1, 1, str(root / f"{name}.store"),
+                                      TINY_MLP, params, _tiny_data(), runs,
+                                      str(root))
+        else:
+            _spawn(torch_elastic_worker.loop,
+                   (world, world, str(root / f"{name}.store"), TINY_MLP,
+                    params, _tiny_data(), runs, str(root)), world)
+        out[name] = (_load(str(root), name, world), [
+            _records(os.path.join(cfg["workdir"], f"m{r}.jsonl"))
+            for r in range(world)],
+            open(os.path.join(cfg["workdir"], "l0.txt")).read())
+        if name == "evict":
+            out["boundary_meta"] = {
+                s: json.load(open(root / "ck" / s / "meta.json"))
+                for s in sorted(os.listdir(root / "ck"))}
+    return out
+
+
+def test_the_relaunch_resumes_from_a_per_shard_boundary_step(
+        port_elastic_runs, port_elastic_auto):
+    """On the default layout the two ranks write the boundary step per
+    shard, and the relaunched rank resumes from it elastically: every
+    round's loss and the resize events equal the monolithic chain's, bit
+    for bit."""
+    ends, recs, _ = port_elastic_auto["evict"]
+    assert [e["end"] for e in ends] == ["relaunch", "relaunch"]
+    boundary = _resize_events(recs[0])[0]["step"]
+    meta = port_elastic_auto["boundary_meta"][f"step-{boundary}"]
+    assert meta["format"] == "sharded" and len(meta["shards"]) == 2
+    assert meta["extra"]["n_devices"] == 2
+    for phase in ("evict", "rejoin"):
+        got = port_elastic_auto[phase][1][0]
+        want = port_elastic_runs[phase][1][0]
+        assert [(r["step"], r["loss"]) for r in got if "loss" in r] == \
+            [(r["step"], r["loss"]) for r in want if "loss" in r], phase
+        assert [(r["step"], r["dead"], r["joined"]) for r in
+                _resize_events(got)] == \
+            [(r["step"], r["dead"], r["joined"]) for r in
+             _resize_events(want)], phase
+    assert f"ELASTIC resume from round {boundary}: 2 devices" in \
+        port_elastic_auto["rejoin"][2]
 
 
 @pytest.mark.gpu

@@ -17,8 +17,9 @@ Both packages' managers (and servers) watch each store:
 - a store outage (the fake GCS and S3 of `tests/fake_stores.py`, stopped)
   counts `store_error` in both, cools nothing down, and reschedules the
   poll inside one interval;
-- a per-shard step is rejected by the port with the NotImplementedError's
-  ROADMAP A6b message while the server goes on answering;
+- per-shard steps, the port's and the JAX package's, install under
+  traffic with no failed request; a torn per-shard write (its shards
+  there, meta.json not yet) is skipped until meta.json commits;
 - the same seed gives the port the same jitter schedule, and it is the
   JAX manager's under the same random stream.
 Reload timing is driven with `poll(now=...)` where it matters; waits on
@@ -31,6 +32,7 @@ import random
 import shutil
 import time
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -299,29 +301,122 @@ def test_a_transient_fetch_error_then_the_same_step_installs(
     assert m.poll(now=m._next_poll + 1e-3) is True and m.step == 3
 
 
-def test_a_per_shard_step_is_rejected_while_serving_goes_on(stores,
-                                                           tmp_path):
+def _scaled_rows(flat, scale, rows):
+    """The step's params as `rows` replica rows, scaled: {key: [rows, ...]}."""
+    out = {}
+    for k, v in flat.items():
+        if k.startswith("params/"):
+            a = np.asarray(v)[:1] * np.float32(scale)
+            out[k] = np.ascontiguousarray(np.broadcast_to(
+                a, (rows,) + a.shape[1:]))
+    return out
+
+
+def _installed_is(tnet, rows):
+    mine = params_to_jax(tnet.net, tnet.params)
+    for lname, lp in mine.items():
+        for pname, v in lp.items():
+            np.testing.assert_array_equal(
+                v, rows[f"params/{lname}/{pname}"][0])
+
+
+def test_a_per_shard_step_installs_under_traffic(stores, tmp_path):
+    """Per-shard steps — one the port writes (a world of one) and one the
+    JAX package writes (`fetch_state_shards` on a mesh of 2) — install
+    while 2 client threads keep requesting: the weights are the step's,
+    bit for bit, and no request fails."""
+    import threading
+
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from sparknet_tpu.parallel.mesh import fetch_state_shards, make_mesh
+    from sparknet_tpu_torch.parallel.mesh import plan_state_shards
     d = _copy(stores["port"], tmp_path / "ck")
+    flat, _, _ = ckpt.restore_flat(d, step=2)
     cfg = ServeConfig(max_batch=4, max_wait_ms=2.0, outputs=("prob",),
                       checkpoint_dir=d, poll_interval_s=0.0,
                       metrics_every_batches=0)
-    with InferenceServer(TorchNet(zoo.lenet(batch=4), device="cpu"),
-                         cfg) as srv:
+    tnet = TorchNet(zoo.lenet(batch=4), device="cpu")
+    with InferenceServer(tnet, cfg) as srv:
         assert srv.manager.step == 2
-        want = srv.infer(_example(0))["prob"]
-        os.makedirs(os.path.join(d, "step-8"))
-        with open(os.path.join(d, "step-8", "meta.json"), "w") as f:
-            json.dump({"step": 8, "keys": ["params/fc1/w"],
-                       "shards": [{"file": "shard-0.npz"}]}, f)
-        deadline = time.monotonic() + 60
-        while srv.manager.swap_failures == 0:
-            assert time.monotonic() < deadline, "step 8 never polled"
-            time.sleep(0.005)
-        assert srv.manager.step == 2 and 8 in srv.manager._bad
-        assert "per-shard" in srv.manager.last_error
-        assert "ROADMAP A6b" in srv.manager.last_error
-        np.testing.assert_array_equal(srv.infer(_example(0))["prob"], want)
+        before = srv.infer(_example(0))["prob"]
+        stop, answered, errors = threading.Event(), [0], []
+
+        def client(i):
+            while not stop.is_set():
+                try:
+                    srv.infer(_example(i))
+                    answered[0] += 1
+                except Exception as e:  # a failed request fails the test
+                    errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        try:
+            port_rows = _scaled_rows(flat, 0.5, 1)
+            ckpt.save_sharded(d, plan_state_shards(
+                port_rows, rank=0, world=1), step=8)
+            mesh = make_mesh(2)
+            jax_rows = _scaled_rows(flat, 0.25, 2)
+            tree = {"params": {}}
+            for k, a in jax_rows.items():
+                _, l, pn = k.split("/")
+                tree["params"].setdefault(l, {})[pn] = jax.device_put(
+                    a, NamedSharding(mesh, P("data")))
+            for step, rows, writer in (
+                    (8, port_rows, None),
+                    (9, jax_rows, lambda: jck.save_sharded(
+                        d, fetch_state_shards(tree, mesh), step=9))):
+                if writer is not None:
+                    writer()
+                assert "shards" in json.load(open(os.path.join(
+                    d, f"step-{step}", "meta.json")))
+                deadline = time.monotonic() + 60
+                while srv.manager.step != step:
+                    assert time.monotonic() < deadline, \
+                        f"step {step} never installed"
+                    time.sleep(0.005)
+                _installed_is(tnet, rows)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors and answered[0] > 0
+        assert srv.manager.swap_failures == 0
         assert srv.status()["requests_failed"] == 0
+        after = srv.infer(_example(0))["prob"]
+        assert not np.array_equal(after, before)
+
+
+def test_a_torn_per_shard_write_is_skipped_until_meta_commits(stores,
+                                                              tmp_path):
+    """A poll that lands inside a per-shard save (the shard files there,
+    meta.json not yet) sees no checkpoint: no install, no rejection, no
+    cooldown; once meta.json lands, the same poll path installs it."""
+    from sparknet_tpu_torch.parallel.mesh import plan_state_shards
+    d = _copy(stores["port"], tmp_path / "ck")
+    flat, _, _ = ckpt.restore_flat(d, step=2)
+    tnet = TorchNet(zoo.lenet(batch=4), device="cpu")
+    m = ModelManager(tnet, checkpoint_dir=d, poll_interval_s=0.0)
+    assert m.load_initial() == 2
+    rows = _scaled_rows(flat, 0.25, 1)
+    stage = str(tmp_path / "stage")
+    ckpt.save_sharded(stage, plan_state_shards(rows, rank=0, world=1),
+                      step=9)
+    src, dst = os.path.join(stage, "step-9"), os.path.join(d, "step-9")
+    os.makedirs(dst)
+    for f in os.listdir(src):
+        if f != "meta.json":  # the commit marker stays out
+            shutil.copy(os.path.join(src, f), os.path.join(dst, f))
+    with pytest.warns(RuntimeWarning, match="meta.json"):
+        assert m.poll() is False
+    assert m.step == 2 and m.swap_failures == 0 and m._bad == {}
+    shutil.copy(os.path.join(src, "meta.json"), os.path.join(dst,
+                                                             "meta.json"))
+    assert m.poll() is True and m.step == 9
+    _installed_is(tnet, rows)
 
 
 def test_the_same_seed_gives_the_same_jitter_schedule(stores):

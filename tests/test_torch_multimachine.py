@@ -28,6 +28,10 @@ the JAX package's init.
   fed both machines' samplers, within the same tolerances; the test
   accuracies over both machines' halves count the same correct examples
   (the float32 ratios, weighted in another order, within 1e-6).
+- The default layout (`checkpoint_sharded="auto"`): the same CIFAR world
+  writes per-shard steps to a fake `gs://` bucket, one shard file per
+  rank from both machines, which restore bit for bit to the monolithic
+  step of the run above.
 """
 import json
 import pickle
@@ -53,6 +57,8 @@ from sparknet_tpu.model.net import CompiledNet as JaxCompiledNet
 from sparknet_tpu.schema import Field as JaxField
 from sparknet_tpu.schema import Schema as JaxSchema
 from sparknet_tpu.utils import checkpoint as jck
+
+from fake_stores import bucket_store
 
 import torch_multimachine_worker
 from sparknet_tpu_torch.apps import cifar_app, imagenet_app
@@ -358,3 +364,39 @@ def test_the_cifar_world_is_a_jax_mesh_of_four(world, tmp_path):
         np.testing.assert_array_equal(np.rint(np.multiply(acc, N_TEST)),
                                       np.rint(np.multiply(want_acc, N_TEST)))
         np.testing.assert_allclose(acc, want_acc, rtol=0, atol=1e-6)
+
+
+def test_two_machines_write_per_shard_steps_to_a_bucket(world):
+    """Four ranks as two machines, the default layout, the checkpoint
+    store on a fake gs:// bucket every rank reaches."""
+    overrides = tuple(o for o in CIFAR_OVERRIDES
+                      if not o.startswith("checkpoint_sharded"))
+    out = world["dir"] / "auto"
+    out.mkdir()
+    with bucket_store("gs") as (url, _):
+        ck = f"{url}/ck_auto"
+        ctx = mp.spawn(torch_multimachine_worker.cifar_to,
+                       args=(WORLD, LOCAL, str(out / "store"),
+                             world["apps"]["cifar_params"],
+                             world["apps"]["cifar"], overrides, ck,
+                             str(out)),
+                       nprocs=WORLD, join=False)
+        deadline = SPAWN_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            deadline -= 5
+            if deadline <= 0:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail(f"the four ranks did not finish in "
+                            f"{SPAWN_TIMEOUT_S} s")
+        meta = json.loads(ckpt._bucket_ops(ck).read(f"{ck}/step-2/meta.json"))
+        got, step, extra = ckpt.restore_flat(ck)
+        verified = ckpt.verify(f"{ck}/step-2")
+    assert meta["format"] == "sharded" and step == 2 and verified
+    assert [s["file"] for s in meta["shards"]] == \
+        [ckpt.shard_file_name(r, WORLD) for r in range(WORLD)]
+    assert extra["n_devices"] == WORLD
+    want, _, _ = ckpt.restore_flat(str(world["out"] / "ck_cifar"), step=2)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -10,7 +10,9 @@ cifar10_quick at local batch 4, τ = 2, on `cifar.write_synthetic` data.
   `tests/test_torch_trainer.py` (max |port - JAX| <= 1e-4 * max |JAX| +
   1e-6 per tensor; losses within rtol 1e-4: convolution sums run in
   another order), and the counter `it` exactly.
-- The settings the slice does not port raise NotImplementedError.
+- The per-shard layout: "on" writes a one-shard step at one rank and
+  resumes from it exactly; "auto" at two gloo ranks writes a shard file
+  per rank, which restores each rank's own state.
 """
 import dataclasses
 import json
@@ -28,9 +30,9 @@ from sparknet_tpu.apps.train_loop import train as jax_train
 from sparknet_tpu.utils import checkpoint as jck
 
 import torch_resume_worker
+import torch_sharded_worker
 from sparknet_tpu_torch import zoo
 from sparknet_tpu_torch.apps import cifar_app
-from sparknet_tpu_torch.apps import train_loop
 from sparknet_tpu_torch.apps.train_loop import resolve_spec, train
 from sparknet_tpu_torch.data.cifar import write_synthetic
 from sparknet_tpu_torch.model.net import CompiledNet
@@ -177,27 +179,59 @@ def test_resume_at_max_rounds_runs_nothing_and_keeps_the_step(cifar_dir,
     assert before == after  # not rewritten
 
 
-@pytest.mark.parametrize("what,extra", [
-    ("checkpoint_sharded='on'", ("checkpoint_sharded=on",)),
-])
-def test_unported_checkpoint_settings_raise(cifar_dir, tmp_path, what,
-                                            extra):
-    with pytest.raises(NotImplementedError, match=what):
-        _port(cifar_dir, tmp_path / "w", tmp_path / "ck", 2, *extra)
-    assert not torch.distributed.is_initialized()
-    assert not (tmp_path / "ck").exists()
+def test_checkpoint_sharded_on_writes_a_one_shard_step(cifar_dir, tmp_path):
+    """"on" is the per-shard layout at any world size: at one rank, one
+    shard file under a manifest; a resume from it is exact."""
+    full = _port(cifar_dir, tmp_path / "wa", tmp_path / "a", 4,
+                 "checkpoint_sharded=on")
+    _port(cifar_dir, tmp_path / "wb", tmp_path / "b", 2,
+          "checkpoint_sharded=on")
+    for step in ("step-2", "step-4"):
+        meta = json.load(open(tmp_path / "a" / step / "meta.json"))
+        assert meta["format"] == "sharded"
+        assert [s["file"] for s in meta["shards"]] == \
+            ["shard-00000-of-00001.npz"]
+        assert len(meta["shards"][0]["digest"]) == 64
+        assert ckpt.verify(str(tmp_path / "a" / step))
+    resumed = _port(cifar_dir, tmp_path / "wb", tmp_path / "b", 4,
+                    "checkpoint_sharded=on")
+    assert torch.equal(resumed.flat_params, full.flat_params)
+    assert torch.equal(resumed.flat_momentum, full.flat_momentum)
 
 
-def test_sharded_auto_at_two_ranks_asks_for_off(cifar_dir, tmp_path,
-                                                monkeypatch):
+def test_sharded_auto_at_two_ranks_writes_per_shard_steps(cifar_dir,
+                                                          tmp_path):
     """"auto" at more than one rank is the reference's per-shard layout:
-    refused before anything is written (a two-rank group is stood in by
-    its DataGroup; the check needs no collective)."""
-    monkeypatch.setattr(train_loop, "init_data_group",
-                        lambda *a, **k: DataGroup(0, 2, torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="checkpoint_sharded=off"):
-        _port(cifar_dir, tmp_path / "w", tmp_path / "ck", 2)
-    assert not (tmp_path / "ck").exists()
+    two gloo ranks each write their own shard file of every step."""
+    out = str(tmp_path)
+    ctx = mp.spawn(torch_sharded_worker.train_runs,
+                   args=(2, str(tmp_path / "store"), str(cifar_dir), out,
+                         "cpu", [{"name": "auto", "overrides": (
+                             *OVERRIDES, "max_rounds=2",
+                             f"checkpoint_dir={out}/ck")}]),
+                   nprocs=2, join=False)
+    deadline = SPAWN_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        deadline -= 5
+        if deadline <= 0:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the two ranks did not finish in "
+                        f"{SPAWN_TIMEOUT_S} s")
+    meta = json.load(open(tmp_path / "ck" / "step-2" / "meta.json"))
+    assert meta["format"] == "sharded"
+    assert [s["file"] for s in meta["shards"]] == \
+        [f"shard-0000{r}-of-00002.npz" for r in range(2)]
+    assert meta["extra"]["n_devices"] == 2
+    flat, _, extra = ckpt.restore_flat(str(tmp_path / "ck"), step=2)
+    assert flat["it"].tolist() == [4, 4]
+    for rank in range(2):
+        got = np.load(tmp_path / f"auto_rank{rank}.npz")
+        back = _tiny_trainer(rank).state_from_checkpoint(flat, extra)
+        np.testing.assert_array_equal(back.flat_params.numpy(),
+                                      got["flat_params"])
+        np.testing.assert_array_equal(back.flat_momentum.numpy(),
+                                      got["flat_momentum"])
 
 
 def test_bad_checkpoint_sharded_value_raises(cifar_dir, tmp_path):

@@ -13,6 +13,9 @@ the test compares to `<out>/rank<r>.pkl`:
   `train()` (the machine's share); CIFAR then trains two rounds from the
   given params with checkpoints in `<out>/ck_cifar`, its losses and test
   accuracies in `<out>/cifar_w<r>`.
+`cifar_to`: the CIFAR app's two rounds again from the given params, with
+the default checkpoint layout, into the given checkpoint directory (a
+bucket); nothing else.
 """
 import argparse
 import dataclasses
@@ -116,3 +119,20 @@ def run(rank, world, local_size, store_path, params, data_dir, overrides,
         group.close()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def cifar_to(rank, world, local_size, store_path, params, cifar_dir,
+             overrides, ckdir, out_dir):
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank % local_size),
+                      LOCAL_WORLD_SIZE=str(local_size))
+    _start_from(params)
+    group = init_data_group("cpu", store_path=store_path, rank=rank,
+                            world_size=world)
+    try:
+        cifar_app.main(["--device", "cpu", "--data-dir", cifar_dir,
+                        *overrides, f"checkpoint_dir={ckdir}",
+                        f"workdir={os.path.join(out_dir, f'to_w{rank}')}"])
+    finally:
+        group.close()
