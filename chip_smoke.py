@@ -3,8 +3,9 @@
 CaffeNet on the card, through the ImageNet app from JPEG shards too,
 cached and streamed, from a directory and from a bucket, watched by its
 telemetry, through the loss of a worker, behind an HTTP port that
-hot-reloads a training step under traffic, and with per-shard
-checkpoints, a host trace, the profiler and the relaunch supervisor?
+hot-reloads a training step under traffic, with per-shard checkpoints, a
+host trace, the profiler and the relaunch supervisor, and behind a router
+with a remote replica over the binary wire and shared memory?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -245,7 +246,37 @@ Phases, in order; any failure exits non-zero before the result line:
    - a port `ModelManager` on the card installs the per-shard step 4; its
      bucket-1 prob `torch.equal` to that of a net loaded from the
      monolithic step 4.
-11. The kernels line, `{"kernels": [...]}`, then the result line
+11. Router and binary wire: a `ModelRouter(workers=2, hedge=True,
+   coalesce=True, status_port=0)` in this process with two lanes,
+   full-width CaffeNet (crop 227, 1000 classes, float32, `max_batch=128`,
+   buckets (1, 8, 64, 128), outputs ("prob",)) and LeNet; the CaffeNet
+   lane installs step 1 (the seed-0 weights in the JAX package's
+   monolithic format) from a checkpoint directory through the port's
+   store, and so does a remote replica: the serve CLI (`python -m
+   sparknet_tpu_torch.serve.app --model caffenet --binary-port 0
+   --checkpoint-dir ...`) in a child process on the same card, added as
+   `spkn://127.0.0.1:<port>`. An `HttpFrontend` and a `BinaryFrontend`
+   front the router. Launch counters are zeroed before the router starts.
+   8 closed-loop client threads make a warm-up and three steady passes of
+   8 x 64 CaffeNet requests: `BinaryClient` with shm, `BinaryClient`
+   inline, `http_infer` (npz); a LeNet trickle runs beside them. Checks:
+   every reply from step 1, at least 1536 CaffeNet requests answered; the
+   shm pass moves no payload byte through a socket (frontend and clients)
+   and every one through segments (the frontend's shm counters); a
+   4th pass drains the remote replica mid-traffic: every request answers,
+   and the 64 after it all go to the local lane; one traced request per
+   transport prints the server's stages; a fixed request alone is
+   `torch.equal` over shm, inline, HTTP and the router to the lane's
+   direct bucket-1 forward (built as the server builds it, deterministic
+   cuDNN), and the remote replica's within 1e-6; hedges within the budget,
+   each request answered once (routed legs = requests + hedges);
+   /metrics with `sparknet_serve_routed_total` by model and replica and
+   both transports; lrn_fwd 2 launches per CaffeNet forward of this
+   process (traffic and canary), float32, and 2 per forward of the child,
+   which prints its counts at exit. Prints img/s and client p50/p99 per
+   transport beside phases 9 and 3, the traced stages, hedges fired, won
+   and cancelled, and coalesced picks.
+12. The kernels line, `{"kernels": [...]}`, then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -3271,6 +3302,502 @@ def phase_serve_http(card: str, phase3_img_s=None, device: str = "cuda",
     return out
 
 
+#: the remote replica of phase 11: the serve CLI (`python -m
+#: sparknet_tpu_torch.serve.app`, run here through runpy) in a process of
+#: its own, counting its TorchNet forwards; at exit it prints its own
+#: lrn_fwd launch counts as one JSON line on stdout
+_REPLICA_SRC = r"""
+import atexit, json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+sys.argv = ["sparknet_tpu_torch.serve.app"] + sys.argv[2:]
+from sparknet_tpu_torch.net_api import TorchNet
+from sparknet_tpu_torch.ops.cuda_lrn import lrn_fwd
+forwards = [0]
+_forward = TorchNet.forward
+
+def forward(self, *a, **kw):
+    forwards[0] += 1
+    return _forward(self, *a, **kw)
+
+TorchNet.forward = forward
+atexit.register(lambda: print(json.dumps({
+    "lrn_fwd": lrn_fwd.launches, "bf16": lrn_fwd.bf16_launches,
+    "forwards": forwards[0]}), flush=True))
+runpy.run_module("sparknet_tpu_torch.serve.app", run_name="__main__")
+"""
+
+
+def _start_replica(ck: str, crop: int, device: str):
+    """The remote CaffeNet replica: the serve CLI on the binary port 0,
+    its weights the checkpoint step in `ck`. Returns (process, its stderr
+    line queue)."""
+    import queue
+    import threading
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-c", _REPLICA_SRC, root, "--model", "caffenet",
+            "--model-name", "caffenet", "--crop", str(crop), "--n-classes",
+            "1000", "--max-batch", "128", "--buckets", "1,8,64,128",
+            "--outputs", "prob", "--max-wait-ms", "5", "--checkpoint-dir",
+            ck, "--binary-port", "0", "--workdir", os.path.join(ck, "..",
+                                                                "replica")]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in iter(proc.stderr.readline, ""):
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, name="replica-stderr", daemon=True).start()
+    return proc, lines
+
+
+def _replica_address(proc, lines, timeout: float = 300.0) -> str:
+    import queue
+    import re
+    seen = []
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+        except queue.Empty:
+            line = ""
+        if line is None or time.monotonic() > deadline:
+            fail(f"router: the remote replica did not come up "
+                 f"(exit {proc.poll()}): {''.join(seen)[-3000:]}")
+        seen.append(line)
+        m = re.search(r"binary data plane at (spkn://[\d.]+:\d+)", line)
+        if m:
+            return m.group(1)
+
+
+def _stop_replica(proc, lines) -> dict:
+    """SIGINT the replica (it drains and exits 0), then read the launch
+    counts it printed at exit."""
+    import signal
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        fail("router: the remote replica did not exit on SIGINT")
+    out = proc.stdout.read()
+    if proc.returncode != 0:
+        tail = []
+        while not lines.empty():
+            tail.append(lines.get() or "")
+        fail(f"router: the remote replica exited {proc.returncode}: "
+             f"{''.join(tail)[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_router(card: str, phase3_img_s=None, phase9_img_s=None,
+                 device: str = "cuda", crop: int = 227, clients: int = 8,
+                 per_client: int = 64) -> dict:
+    """Phase 11: the router and the binary data plane (module docstring);
+    returns the launch counts of both processes. The arguments let the
+    phase be rehearsed on the CPU at a small crop (counts then 0)."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import precision, zoo
+    from sparknet_tpu_torch.model.net import params_to_jax
+    from sparknet_tpu_torch.net_api import TorchNet
+    from sparknet_tpu_torch.obs import reqtrace
+    from sparknet_tpu_torch.ops.cuda_lrn import lrn_fwd
+    from sparknet_tpu_torch.serve.binary_frontend import (BinaryClient,
+                                                          BinaryFrontend)
+    from sparknet_tpu_torch.serve.http_frontend import (HttpFrontend,
+                                                        http_infer)
+    from sparknet_tpu_torch.serve.router import ModelRouter, RouterConfig
+    from sparknet_tpu_torch.serve.server import ServeConfig, zeros_batch
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+
+    precision.set_policy("float32")
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    spec = zoo.caffenet(batch=128, crop=crop, n_classes=1000)
+    root = tempfile.mkdtemp(prefix="chip_smoke_router_")
+    ck = os.path.join(root, "ck")
+    rng = np.random.default_rng(11)
+    payloads = [{"data": (50.0 * rng.standard_normal((crop, crop, 3))
+                          ).astype(np.float32)} for _ in range(128)]
+    fixed = {"data": (50.0 * np.random.default_rng(111).standard_normal(
+        (crop, crop, 3))).astype(np.float32)}
+    lenet_x = {"data": np.random.default_rng(5).standard_normal(
+        (28, 28, 1)).astype(np.float32)}
+    out: dict = {"img_s": {}, "lat": {}}
+    proc = router = None
+    fes = []
+    t_phase = time.perf_counter()
+    try:
+        # step 1 of the seed-0 weights in the JAX package's monolithic
+        # format: both replicas install it through the port's store
+        src = TorchNet(spec, seed=0, device="cpu")
+        ckpt.save(ck, {"params": params_to_jax(src.net, src.params)}, step=1)
+        del src
+        proc, lines = _start_replica(ck, crop, device)
+        lane_cfg = dict(max_batch=128, buckets=SERVE_BUCKETS,
+                        outputs=("prob",), max_wait_ms=5.0,
+                        checkpoint_dir=ck, metrics_every_batches=0)
+        router = ModelRouter(RouterConfig(workers=2, hedge=True,
+                                          coalesce=True, status_port=0))
+        net = TorchNet(spec, seed=7, device=device)  # step 1 replaces it
+        _zero_counts()
+        lane = router.add_model("caffenet", net, cfg=ServeConfig(**lane_cfg))
+        router.add_model("lenet", TorchNet(zoo.lenet(batch=8), seed=0,
+                                           device=device),
+                         cfg=ServeConfig(max_batch=8, outputs=("prob",),
+                                         metrics_every_batches=0))
+        url_remote = _replica_address(proc, lines)
+        rep = router.add_remote_replica("caffenet", url_remote)
+        router.start()
+        if lane.manager.step != 1:
+            fail(f"router: the CaffeNet lane did not install step 1 "
+                 f"(step {lane.manager.step})")
+        hfe = HttpFrontend(router, port=0)
+        bfe = BinaryFrontend(router, port=0)
+        fes = [hfe, bfe]
+        url = f"http://{hfe.address[0]}:{hfe.address[1]}"
+        print(f"router: lanes caffenet (step 1 from the port's store, "
+              f"f32, buckets {list(SERVE_BUCKETS)}) and lenet over 2 pool "
+              f"threads, remote replica {url_remote} (the serve CLI in a "
+              f"child process, step 1); {url} and spkn://{bfe.address[0]}:"
+              f"{bfe.address[1]}; child up {time.perf_counter() - t_phase:.1f}"
+              f" s after the phase began [{card}]", flush=True)
+
+        def traffic(kind: str, n_each: int, on_progress=None):
+            """`clients` closed-loop client threads, each with its own
+            connection; returns (per-client [(latency s, step)], wall s,
+            client payload bytes on the socket)."""
+            results = [[] for _ in range(clients)]
+            errors, sock_bytes = [], [0]
+            lock = threading.Lock()
+
+            def client(c: int) -> None:
+                cli = None
+                try:
+                    if kind != "http":
+                        cli = BinaryClient(*bfe.address, timeout=180.0,
+                                           use_shm=(kind == "shm"))
+                        if kind == "shm" and cli._shm_granted is not True:
+                            errors.append(f"client {c}: shm not granted")
+                            return
+                    for i in range(n_each):
+                        p = payloads[(c * 17 + i) % len(payloads)]
+                        t0 = time.perf_counter()
+                        if cli is None:
+                            meta: dict = {}
+                            r = http_infer(url, "caffenet", p,
+                                           deadline_s=120.0, timeout=180.0,
+                                           meta=meta)
+                            step = meta.get("step")
+                        else:
+                            r = cli.infer(p, model="caffenet",
+                                          deadline_s=120.0)
+                            step = cli.last_step
+                        dt = time.perf_counter() - t0
+                        prob = r["prob"]
+                        if prob.shape != (1000,) or \
+                                not np.isfinite(prob).all():
+                            errors.append(f"client {c}: prob {prob.shape}")
+                            return
+                        results[c].append((dt, step))
+                        if on_progress is not None:
+                            on_progress()
+                except Exception as e:  # every request must answer
+                    errors.append(f"client {c}: {e!r}")
+                finally:
+                    if cli is not None:
+                        with lock:
+                            sock_bytes[0] += (cli.payload_tx_bytes
+                                              + cli.payload_rx_bytes)
+                        cli.close()
+
+            threads = [threading.Thread(target=client, args=(c,),
+                                        name=f"router-client-{c}")
+                       for c in range(clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+                if t.is_alive():
+                    fail(f"router ({kind}): a client thread hung")
+            wall = time.perf_counter() - t0
+            if errors:
+                fail(f"router ({kind}): {errors[:3]}")
+            return results, wall, sock_bytes[0]
+
+        # a trickle of lenet requests beside the CaffeNet traffic
+        stop_lenet = threading.Event()
+        lenet_box = {"n": 0, "errors": []}
+
+        def lenet_trickle():
+            # over HTTP: the binary frontend's payload counters then see
+            # the CaffeNet passes alone
+            try:
+                while not stop_lenet.is_set():
+                    p = http_infer(url, "lenet", lenet_x,
+                                   deadline_s=60.0)["prob"]
+                    if p.shape != (10,) or not np.isfinite(p).all():
+                        lenet_box["errors"].append(p.shape)
+                    lenet_box["n"] += 1
+                    stop_lenet.wait(0.01)
+            except Exception as e:
+                lenet_box["errors"].append(repr(e))
+
+        trickle = threading.Thread(target=lenet_trickle,
+                                   name="router-lenet")
+        trickle.start()
+        try:
+            traffic("inline", 16)  # warm-up: every bucket, both processes
+            n_caffenet = 16 * clients
+            total_sock = {}
+            for kind in ("shm", "inline", "http"):
+                lane.reset_counters()
+                rx0, tx0 = bfe.payload_rx_bytes, bfe.payload_tx_bytes
+                srx0, stx0 = bfe.shm_rx_bytes, bfe.shm_tx_bytes
+                res, wall, sock = traffic(kind, per_client)
+                lat = [x[0] for rows in res for x in rows]
+                steps = {x[1] for rows in res for x in rows}
+                n_caffenet += len(lat)
+                total_sock[kind] = sock
+                img_s = len(lat) / wall
+                out["img_s"][kind], out["lat"][kind] = img_s, lat
+                if steps != {1}:
+                    fail(f"router ({kind}): steps {sorted(map(str, steps))}"
+                         f" (want every reply from step 1)")
+                extra = ""
+                if kind == "shm":
+                    drx = bfe.payload_rx_bytes - rx0
+                    dtx = bfe.payload_tx_bytes - tx0
+                    srx = bfe.shm_rx_bytes - srx0
+                    stx = bfe.shm_tx_bytes - stx0
+                    want = len(lat) * crop * crop * 3 * 4
+                    if drx or dtx or sock or srx != want or \
+                            stx != len(lat) * 4000:
+                        fail(f"router (shm): socket payload bytes "
+                             f"frontend rx {drx} tx {dtx}, clients {sock}; "
+                             f"through segments rx {srx} tx {stx} (want 0,"
+                             f" 0, 0; {want}, {len(lat) * 4000})")
+                    extra = (f"; payload bytes on the socket 0, through "
+                             f"segments {srx} in + {stx} out")
+                print(f"router: {kind}, {clients} clients x {per_client}: "
+                      f"{len(lat)} CaffeNet requests in {wall:.3f} s = "
+                      f"{img_s:.1f} img/s; client-side {_quantiles_ms(lat)}"
+                      f"{extra} [{card}]", flush=True)
+            print("router: img/s by transport: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in out["img_s"].items())
+                + "; phase 9 (HTTP, one server) "
+                + (f"{phase9_img_s:.1f}" if phase9_img_s else "-")
+                + ", phase 3 (in process) "
+                + (f"{phase3_img_s:.1f}" if phase3_img_s else "-")
+                + f" [{card}]", flush=True)
+
+            # the drain: mid-traffic, the remote replica stops taking new
+            # requests; every in-flight one still answers
+            routed = router.registry.counter(
+                "sparknet_serve_routed_total", labels=("model", "replica"))
+            done = [0]
+            drained = threading.Event()
+
+            def progress():
+                done[0] += 1
+                if done[0] == clients * 8 and not drained.is_set():
+                    router.drain("caffenet", rep.name)
+                    drained.set()
+
+            before = routed.value(model="caffenet", replica=rep.name) or 0
+            res, wall, _ = traffic("inline", 32, on_progress=progress)
+            at_drain = routed.value(model="caffenet", replica=rep.name) or 0
+            n_caffenet += sum(len(r) for r in res)
+            local0 = routed.value(model="caffenet",
+                                  replica="local:caffenet") or 0
+            res2, _, _ = traffic("inline", 8)
+            n_caffenet += sum(len(r) for r in res2)
+            after = routed.value(model="caffenet", replica=rep.name) or 0
+            local1 = routed.value(model="caffenet",
+                                  replica="local:caffenet") or 0
+            if not drained.is_set() or after != at_drain or \
+                    local1 - local0 < clients * 8:
+                fail(f"router: after the drain the remote replica took "
+                     f"{after - at_drain} requests (want 0), the local "
+                     f"lane {local1 - local0}")
+            print(f"router: drained the remote replica mid-traffic: "
+                  f"{clients * 32} requests all answered ({at_drain - before}"
+                  f" routed to it in that pass), then {clients * 8} more, "
+                  f"every one to the local lane [{card}]", flush=True)
+        finally:
+            stop_lenet.set()
+            trickle.join(timeout=120)
+        if trickle.is_alive() or lenet_box["errors"] or lenet_box["n"] < 1:
+            fail(f"router: the lenet trickle: {lenet_box}")
+
+        # where a request's time goes, one traced request per transport,
+        # served by the local lane (the remote is drained)
+        tr = reqtrace.start_request_tracing(head_sample=1.0)
+        try:
+            for kind in ("shm", "inline", "http"):
+                if kind == "http":
+                    http_infer(url, "caffenet", fixed, deadline_s=60.0)
+                else:
+                    cli = BinaryClient(*bfe.address, use_shm=(kind == "shm"))
+                    try:
+                        cli.infer(fixed, model="caffenet", deadline_s=60.0)
+                    finally:
+                        cli.close()
+                rows = []
+                deadline = time.monotonic() + 30
+                while not any(r["k"] == "r" for r in rows):
+                    if time.monotonic() > deadline:
+                        fail(f"router: no trace row for the {kind} request")
+                    rows += tr.drain_rows()
+                    time.sleep(0.005)
+                r = next(x for x in rows if x["k"] == "r")
+                print(f"router: traced {kind} request (server side, ms): "
+                      f"total {r['dur'] / 1e3:.3f}; " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in sorted(
+                              r["stages"].items())) + f" [{card}]",
+                      flush=True)
+                out.setdefault("stages", {})[kind] = r["stages"]
+        finally:
+            reqtrace.stop_request_tracing()
+
+        # a fixed request, alone (bucket 1), through every transport and
+        # the in-process lane, under cuDNN's deterministic algorithms
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        got = {}
+        for kind in ("shm", "inline"):
+            cli = BinaryClient(*bfe.address, use_shm=(kind == "shm"))
+            try:
+                got[kind] = cli.infer(fixed, model="caffenet",
+                                      deadline_s=60.0)["prob"]
+            finally:
+                cli.close()
+        got["http"] = http_infer(url, "caffenet", fixed,
+                                 deadline_s=60.0)["prob"]
+        got["lane"] = np.asarray(router.infer("caffenet", fixed)["prob"])
+        from sparknet_tpu_torch.serve.binary_frontend import binary_infer
+        remote = binary_infer(url_remote, "caffenet", fixed, deadline_s=60.0,
+                              use_shm=False)["prob"]
+        launches, bf16 = lrn_fwd.launches, lrn_fwd.bf16_launches
+        traffic_forwards = len(lane.batch_log)
+        manager_forwards = lane.manager.forwards
+        one = zeros_batch(net, 1)
+        one["data"][0] = fixed["data"]
+        direct = net.forward(one, ["prob"])["prob"][0]
+        for kind, v in got.items():
+            if not torch.equal(torch.from_numpy(np.array(v)),
+                               torch.from_numpy(direct)):
+                fail(f"router: the fixed request's prob over {kind} differs "
+                     f"from the lane's direct bucket-1 forward (max abs err "
+                     f"{np.abs(v - direct).max():.3e})")
+        remote_err = float(np.abs(remote - direct).max())
+        if remote_err > 1e-6:
+            fail(f"router: the remote replica's prob for the fixed request "
+                 f"is {remote_err:.3e} from the local lane's (want <= 1e-6:"
+                 f" the same step, the same card)")
+        print(f"router: a fixed request's prob torch.equal over shm, inline"
+              f" and HTTP to the lane's direct bucket-1 forward; the remote "
+              f"replica's within {remote_err:.3e} [{card}]", flush=True)
+
+        # the hedges, the coalescer, /metrics
+        st = router.status()
+        hg = st["hedging"].get("caffenet", {"routed": 0, "hedged": 0})
+        hedged_c = router.registry.counter("sparknet_serve_hedged_total",
+                                           labels=("model", "won"))
+        won = {w: hedged_c.value(model="caffenet", won=w) or 0
+               for w in ("primary", "hedge")}
+        cancelled = router.registry.counter(
+            "sparknet_serve_hedge_cancelled_total",
+            labels=("model",)).value(model="caffenet") or 0
+        coalesced = router.registry.counter(
+            "sparknet_serve_coalesced_total",
+            labels=("model",)).value(model="caffenet") or 0
+        legs = sum(routed.value(model="caffenet", replica=r.name) or 0
+                   for r in router.replicas["caffenet"])
+        budget = router.cfg.hedge_budget
+        if hg["hedged"] > budget * hg["routed"] or \
+                sum(won.values()) != hg["hedged"] or \
+                legs != hg["routed"] + hg["hedged"]:
+            fail(f"router: hedging {hg}, won {won}, legs routed {legs} "
+                 f"(want hedged <= {budget} x routed, each answered once)")
+        print(f"router: {hg['routed']} CaffeNet requests routed, "
+              f"{hg['hedged']} hedged (budget {budget}): won by the primary"
+              f" {won['primary']:.0f}, by the hedge {won['hedge']:.0f}, "
+              f"losers cancelled before forming {cancelled:.0f}; coalesced "
+              f"picks {coalesced:.0f}; {n_caffenet} CaffeNet requests "
+              f"answered by clients [{card}]", flush=True)
+        if n_caffenet < 3 * clients * per_client:
+            fail(f"router: {n_caffenet} CaffeNet requests answered (want "
+                 f">= {3 * clients * per_client})")
+        host, port = router.status_address
+        text = urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                      timeout=30).read().decode()
+        for fam in ('sparknet_serve_routed_total{model="caffenet",'
+                    'replica="local:caffenet"}',
+                    f'sparknet_serve_routed_total{{model="caffenet",'
+                    f'replica="{rep.name}"}}',
+                    'sparknet_serve_routed_total{model="lenet",'
+                    'replica="local:lenet"}',
+                    'sparknet_serve_http_requests_total{code="200",'
+                    'transport="binary"}',
+                    'sparknet_serve_http_requests_total{code="200",'
+                    'transport="http"}',
+                    'sparknet_serve_replica_drains_total{model="caffenet",'):
+            if fam not in text:
+                fail(f"router: /metrics lacks {fam}")
+        print("router: /metrics has routed_total by model and replica, "
+              "transport=\"binary\" and transport=\"http\"", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        for fe in fes:
+            fe.stop()
+        if router is not None:
+            router.stop()
+        child = None
+        if proc is not None:
+            if proc.poll() is None:
+                child = _stop_replica(proc, lines)
+            else:
+                proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    if device == "cuda" and (
+            launches != 2 * (traffic_forwards + manager_forwards)
+            or bf16 != 0):
+        fail(f"router: lrn_fwd launched {launches} times ({bf16} bf16) "
+             f"over {traffic_forwards} lane and {manager_forwards} canary "
+             f"forwards (want 2 per forward, f32)")
+    if child is None:
+        fail("router: the remote replica exited before it was stopped")
+    if device == "cuda" and (child["lrn_fwd"] != 2 * child["forwards"]
+                             or child["bf16"] != 0
+                             or child["forwards"] < 2):
+        fail(f"router: the remote replica's lrn_fwd {child} (want 2 per "
+             f"forward, f32)")
+    print(f"router: lrn_fwd launches {launches} = 2 x ({traffic_forwards} "
+          f"lane + {manager_forwards} canary forwards) here; the remote "
+          f"replica's {child['lrn_fwd']} = 2 x {child['forwards']} forwards"
+          f" ({child['bf16']} bf16); phase {time.perf_counter() - t_phase:.1f}"
+          f" s [{card}]", flush=True)
+    out["launches"] = {"local": launches, "remote": child["lrn_fwd"]}
+    out["forwards"] = {"local": traffic_forwards + manager_forwards,
+                       "remote": child["forwards"]}
+    return out
+
+
 def profile_step(net, params, batch, solver_cfg, card: str,
                  top: int = 14) -> None:
     """One training step (forward, autograd, SGD update) at the main
@@ -3377,6 +3904,7 @@ def main() -> None:
     elastic = phase_elastic(card, train["warm_round_s"])
     http = phase_serve_http(card, serve["steady_img_s"])
     sharded = phase_sharded(card)
+    routed = phase_router(card, serve["steady_img_s"], http["http_img_s"])
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -3416,6 +3944,8 @@ def main() -> None:
          "serve_launches": serve["launches"],
          "serve_http_phase_launches": http["launches"],
          "serve_http_phase_forwards": http["forwards"],
+         "router_phase_launches": routed["launches"],
+         "router_phase_forwards": routed["forwards"],
          "serve": {k: v for k, v in agg.items() if k.endswith("_ms")
                    or k == "ms"},
          "serve_timed_at": "norm1 + norm2, bucket 128, float32",

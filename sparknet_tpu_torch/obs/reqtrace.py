@@ -2,13 +2,15 @@
 span capture, and cross-process trace assembly.
 
 A copy of `sparknet_tpu/obs/reqtrace.py` (pure Python): the port imports
-nothing of the JAX package. The port's HTTP frontend begins and finishes
-the request records and echoes `X-Trace-Id`; the server's worker emits
-the `queue`, `form`, `forward` and `depad` stages. The binary wire, the
-router's proxy and hedge legs, and the live two-process selfcheck (it
-drives the binary frontend) arrive with ROADMAP A10; the CLI's
-`--selfcheck` raises NotImplementedError until then. Assemble shards with
-`python -m sparknet_tpu_torch.obs.reqtrace SHARD_DIR ...`.
+nothing of the JAX package. The port's HTTP and binary frontends begin
+and finish the request records (HTTP echoes `X-Trace-Id`, the binary
+frame carries the context in its REQUEST meta); the router mints a
+context when it is fronted directly and tags each hedge leg; the
+server's worker emits the `queue`, `form`, `forward` and `depad` stages.
+Assemble shards with `python -m sparknet_tpu_torch.obs.reqtrace
+SHARD_DIR ...`; `--selfcheck [--device cpu]` runs the live two-process
+proof (a router here, a replica behind the binary frontend in a child
+process, its lenet on the CUDA card unless `--device cpu`).
 
 `obs/trace.py` answers "where did THIS PROCESS's wall clock go"; nothing
 answered "why was THIS REQUEST 40 ms" once a request crosses the router,
@@ -637,16 +639,174 @@ def format_slowest(summaries: List[dict], top: int = 10) -> str:
 
 
 
+# -- selfcheck ---------------------------------------------------------------
+
+# The child replica: lenet on the given device, its forward deliberately
+# slowed, behind the port's InferenceServer and BinaryFrontend, tracing
+# every request (head 1.0) and flushing its shard when the parent closes
+# stdin.
+_CHILD_SRC = r"""
+import os, sys, time
+import torch
+from sparknet_tpu_torch import zoo
+from sparknet_tpu_torch.net_api import TorchNet
+from sparknet_tpu_torch.obs import reqtrace
+from sparknet_tpu_torch.serve.binary_frontend import BinaryFrontend
+from sparknet_tpu_torch.serve.server import InferenceServer, ServeConfig
+
+shard_dir, ready_path, delay_ms = sys.argv[1], sys.argv[2], float(sys.argv[3])
+device = sys.argv[4]
+torch.set_num_threads(1)
+
+
+class SleepyNet:
+    def __init__(self, inner, delay_s):
+        self._inner, self.delay_s = inner, float(delay_s)
+
+    def __getattr__(self, k):
+        return getattr(self._inner, k)
+
+    def forward(self, *a, **kw):
+        time.sleep(self.delay_s)
+        return self._inner.forward(*a, **kw)
+
+
+net = SleepyNet(TorchNet(zoo.lenet(batch=2), seed=0, device=device),
+                delay_ms / 1e3)
+reqtrace.start_request_tracing(out_dir=shard_dir, head_sample=1.0,
+                               proc="replica")
+cfg = ServeConfig(max_batch=2, max_wait_ms=1.0, buckets=(1, 2),
+                  outputs=("prob",), metrics_every_batches=0)
+with InferenceServer(net, cfg) as srv:
+    fe = BinaryFrontend(srv, port=0)
+    try:
+        with open(ready_path + ".tmp", "w") as f:
+            f.write("%s %d" % (fe.address[0], fe.address[1]))
+        os.replace(ready_path + ".tmp", ready_path)
+        sys.stdin.readline()
+    finally:
+        fe.stop()
+tr = reqtrace.stop_request_tracing()
+tr.flush()
+print("child-flushed", flush=True)
+"""
+
+
+def _selfcheck(keep: Optional[str] = None, delay_ms: float = 40.0,
+               device: Optional[str] = None) -> int:
+    """Live two-process proof: a router in THIS process proxies one
+    deliberately slowed request over the binary wire to a replica
+    subprocess; both sides shard their spans; the assembled trace must
+    contain the cross-process hop and the stage breakdown. The replica's
+    lenet runs on `device` (the CUDA card unless "cpu")."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from ..device import resolve_device
+    from ..serve.router import ModelRouter, RouterConfig
+
+    dev = resolve_device(device)  # no card: raise before the child starts
+    tmp = keep or tempfile.mkdtemp(prefix="spkn-trace-selfcheck-")
+    os.makedirs(tmp, exist_ok=True)
+    shard_dir = os.path.join(tmp, "shards")
+    os.makedirs(shard_dir, exist_ok=True)
+    ready = os.path.join(tmp, "ready.txt")
+    # the child imports this package from the checkout it runs in
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _CHILD_SRC, shard_dir, ready,
+         str(delay_ms), str(dev)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, env=env)
+    ok = False
+    try:
+        deadline = time.monotonic() + 120.0
+        while not os.path.exists(ready):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("selfcheck replica never came up")
+            time.sleep(0.05)
+        with open(ready) as f:
+            host, port = f.read().split()
+        tracer = start_request_tracing(out_dir=shard_dir,
+                                       head_sample=1.0, proc="router")
+        try:
+            router = ModelRouter(RouterConfig(workers=2, hedge=False))
+            router.add_remote_replica("default", f"spkn://{host}:{port}")
+            with router:
+                out = router.infer(
+                    "default", {"data": np.ones((28, 28, 1), np.float32)},
+                    timeout=60.0)
+            prob = np.asarray(out["prob"])
+            if prob.shape != (10,) or not np.isfinite(prob).all() or \
+                    abs(float(prob.sum()) - 1.0) > 1e-4:
+                raise RuntimeError(f"bad reply: {out!r}")
+        finally:
+            stop_request_tracing()
+            tracer.flush()
+        try:
+            proc.communicate(input=b"done\n", timeout=60.0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise RuntimeError("selfcheck replica did not flush")
+
+        rows = load_shards([shard_dir])
+        traces = assemble(rows)
+        crossing = {tid: t for tid, t in traces.items()
+                    if t["summary"]["procs"] >= 2}
+        if not crossing:
+            raise RuntimeError(
+                f"no cross-process trace assembled "
+                f"({len(traces)} traces, {len(rows)} rows)")
+        tid, t = max(crossing.items(),
+                     key=lambda kv: kv[1]["summary"]["total_ms"])
+        s = t["summary"]
+        if s["hops"] < 1:
+            raise RuntimeError(f"trace {tid} has no matched wire hop")
+        if s["forward_ms"] < delay_ms * 0.5:
+            raise RuntimeError(
+                f"forward stage missing or implausible: {s}")
+        for st in ("queue", "form", "forward"):
+            if f"{st}_ms" not in s:
+                raise RuntimeError(f"missing stage {st} in {s}")
+        pids = {e["pid"] for e in t["chrome"]["traceEvents"]
+                if e["ph"] == "X"}
+        if len(pids) < 2:
+            raise RuntimeError("chrome trace is single-process")
+        with open(os.path.join(tmp, f"trace-{tid}.json"), "w") as f:
+            json.dump(t["chrome"], f)
+        print(f"selfcheck OK: trace {tid} crossed "
+              f"{s['procs']} processes ({s['hops']} wire hop(s)); "
+              f"total {s['total_ms']:.1f} ms = queue {s['queue_ms']:.2f}"
+              f" + form {s['form_ms']:.2f} + forward "
+              f"{s['forward_ms']:.1f} + wire {s['wire_ms']:.2f} + other "
+              f"{s['other_ms']:.2f}")
+        print(format_slowest([x["summary"] for x in traces.values()]))
+        ok = True
+        return 0
+    except Exception as e:
+        print(f"selfcheck FAILED: {e}", file=sys.stderr)
+        if proc.poll() is None:
+            proc.kill()
+        _, err = proc.communicate(timeout=10.0)
+        if err:
+            sys.stderr.write(err.decode(errors="replace")[-4000:])
+        return 1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10.0)
+        if keep is None and ok:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -- console -----------------------------------------------------------------
-
-def _selfcheck(keep: Optional[str] = None, delay_ms: float = 40.0) -> int:
-    """The JAX package's live two-process proof drives a router in this
-    process and a replica behind the binary frontend in a subprocess;
-    neither is ported yet."""
-    raise NotImplementedError(
-        "the request-trace selfcheck drives the router and the binary "
-        "frontend, which are not ported yet (ROADMAP A10)")
-
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
@@ -663,13 +823,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--json", action="store_true",
                     help="print the summary table as JSON")
     ap.add_argument("--selfcheck", action="store_true",
-                    help="live two-process capture+assembly proof (needs "
-                    "the binary frontend: ROADMAP A10)")
+                    help="live two-process capture+assembly proof")
     ap.add_argument("--keep", default=None, metavar="DIR",
                     help="selfcheck: keep artifacts under DIR")
+    ap.add_argument("--device", default=None,
+                    help="selfcheck: the replica's device (default: the "
+                         "CUDA card; 'cpu' to run without one)")
     a = ap.parse_args(argv)
     if a.selfcheck:
-        return _selfcheck(keep=a.keep)
+        return _selfcheck(keep=a.keep, device=a.device)
     if not a.shards:
         ap.error("no shards given (or use --selfcheck)")
     rows = load_shards(a.shards)

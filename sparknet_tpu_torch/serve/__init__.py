@@ -1,3 +1,40 @@
-"""Serving: one replica — dynamic batching, bucket padding, checkpoint hot
-reload, int8 weight-only serving, the HTTP data plane with tenant
-admission, and the serve CLI."""
+"""Serving: dynamic batching, bucket padding, checkpoint hot reload, int8
+weight-only serving, the multi-model router over a shared pool (remote
+replicas, hedging, coalesced formation), the HTTP and binary frame data
+planes (with the shared-memory transport) behind tenant admission, and
+the serve CLI.
+
+Exports the names `sparknet_tpu.serve` exports for the ported modules."""
+from ..model.quant import QuantConfig
+from .admission import (PRIORITIES, PriorityAdmission, PriorityShedError,
+                        TenantAdmission, TenantLimitError,
+                        parse_priority)
+from .batcher import (DeadlineExpiredError, DynamicBatcher,
+                      QueueFullError, RequestCancelledError,
+                      ServeRequest)
+from .binary_frontend import BinaryClient, BinaryFrontend, binary_infer
+from .buckets import derive_buckets, fill_ratio, size_hist_from_jsonl
+from .http_frontend import BackendAdapter, HttpFrontend, http_infer
+from .model_manager import ModelManager, ServeModelError
+from .router import (ModelRouter, NoReplicaError, Replica, RouterConfig,
+                     UnknownModelError, heartbeat_fill, heartbeat_health)
+from .server import (OUTPUTS_KEY, InferenceServer, ServeConfig,
+                     encode_outputs, parity_batch, pop_outputs,
+                     zeros_batch)
+from .wire import WireError
+
+__all__ = [
+    "DynamicBatcher", "QueueFullError", "DeadlineExpiredError",
+    "RequestCancelledError", "ServeRequest",
+    "ModelManager", "ServeModelError",
+    "InferenceServer", "ServeConfig", "zeros_batch", "parity_batch",
+    "OUTPUTS_KEY", "encode_outputs", "pop_outputs",
+    "QuantConfig", "derive_buckets", "fill_ratio", "size_hist_from_jsonl",
+    "ModelRouter", "RouterConfig", "Replica", "NoReplicaError",
+    "UnknownModelError", "heartbeat_health", "heartbeat_fill",
+    "HttpFrontend", "http_infer", "BackendAdapter",
+    "BinaryFrontend", "BinaryClient", "binary_infer", "WireError",
+    "TenantAdmission", "TenantLimitError",
+    "PriorityAdmission", "PriorityShedError", "PRIORITIES",
+    "parse_priority",
+]

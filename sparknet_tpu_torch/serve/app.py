@@ -1,31 +1,39 @@
-"""The serve CLI of the PyTorch port: one model behind the inference server.
+"""The serve CLI of the PyTorch port: one model, or several behind a router.
 
-The counterpart of the single-model path of `sparknet_tpu/serve/app.py`.
-Builds a zoo net or a `.prototxt` net on the device (the CUDA card unless
-`--device cpu`) with `--weights` (`.npz` or `.caffemodel`) or seeded
-random ones, starts the dynamic-batching server — with checkpoint hot
-reload (`--checkpoint-dir`, local or gs://|s3://), int8 weight-only
-serving (`--quant int8`), a traffic-derived bucket ladder
-(`--buckets-from`), /metrics, /healthz and /status (`--status-port`) and a
-heartbeat (`--heartbeat`) — and either self-drives `--demo N` synthetic
-requests through submit -> batch -> forward -> de-pad and prints the
-status JSON, or serves until interrupted. `--http-port` opens the HTTP/1.1
-inference data plane (`serve/http_frontend.py`), behind one tenant and
+The counterpart of `sparknet_tpu/serve/app.py`. Builds a zoo net or a
+`.prototxt` net on the device (the CUDA card unless `--device cpu`) with
+`--weights` (`.npz` or `.caffemodel`) or seeded random ones, starts the
+dynamic-batching server — with checkpoint hot reload (`--checkpoint-dir`,
+local or gs://|s3://), int8 weight-only serving (`--quant int8`), a
+traffic-derived bucket ladder (`--buckets-from`), /metrics, /healthz and
+/status (`--status-port`) and a heartbeat (`--heartbeat`) — and either
+self-drives `--demo N` synthetic requests through submit -> batch ->
+forward -> de-pad and prints the status JSON, or serves until interrupted.
+
+`--models name=source[,...]` switches to multi-model mode: a `ModelRouter`
+serving each model as a lane over one shared pool of `--router-workers`
+threads, each lane hot-reloading its own `--checkpoint-dir` (a template
+with `{model}` substituted), with `--hedge` (budget `--hedge-budget`) and
+`--coalesce`. `--http-port` opens the HTTP/1.1 data plane
+(`serve/http_frontend.py`) and `--binary-port` the binary frame data plane
+(`serve/binary_frontend.py`, `--io-threads` event loops, the shared-memory
+transport for same-host clients unless `--no-shm`), behind one tenant and
 priority admission door when `--tenant-rate` is given.
 
 The flags of later slices keep the JAX package's names and stop with an
-error naming their ROADMAP item: the router (`--models`,
-`--router-workers`), the binary data plane (`--binary-port`, `--no-shm`,
-`--io-threads`), hedging and coalescing, the graph backend (`--graph`),
-the fleet (`--autoscale`, `--fleet-*`, `--pool-max`, `--rollout-gate`),
-the SLO history (`--history*`, `--slo-availability`) and the compile
-cache (`--compile-cache`).
+error naming their ROADMAP item: the graph backend (`--graph`), the fleet
+(`--autoscale`, `--fleet-*`, `--pool-max`, `--rollout-gate`), the SLO
+history (`--history*`, `--slo-availability`) and the compile cache
+(`--compile-cache`).
 
 Examples:
     python -m sparknet_tpu_torch.serve.app --model caffenet --max-batch 128 \
         --outputs prob --demo 256
+    python -m sparknet_tpu_torch.serve.app --models caffenet=caffenet,lenet=lenet \
+        --router-workers 2 --http-port 0 --binary-port 0 --hedge --coalesce \
+        --demo 16
     python -m sparknet_tpu_torch.serve.app --model lenet --device cpu \
-        --http-port 8080 --checkpoint-dir DIR --status-port 8081
+        --http-port 8080 --binary-port 9000 --checkpoint-dir DIR --status-port 8081
     python -m sparknet_tpu_torch.serve.app --model lenet --device cpu \
         --quant int8 --buckets-from run/serving_metrics_*.jsonl --demo 8
     python -m sparknet_tpu_torch.serve.app --model deploy.prototxt \
@@ -46,10 +54,11 @@ from .. import zoo
 from ..net_api import TorchNet
 from ..utils.logger import Logger, default_logger
 from .http_frontend import HttpFrontend
+from .router import ModelRouter, RouterConfig
 from .server import InferenceServer, ServeConfig, net_input_specs
 
 
-def resolve_spec(model: str, max_batch: int, n_classes: int,
+def resolve_spec(model: str, max_batch: int, n_classes: Optional[int],
                  crop: Optional[int]):
     """A `.prototxt` path (at its own input shapes) or a zoo builder name
     at batch max_batch -> NetSpec (the same table as
@@ -60,7 +69,7 @@ def resolve_spec(model: str, max_batch: int, n_classes: int,
     builders = {
         "cifar10_quick": lambda: zoo.cifar10_quick(batch=max_batch),
         "caffenet": lambda: zoo.caffenet(batch=max_batch, crop=crop or 227,
-                                         n_classes=n_classes),
+                                         n_classes=n_classes or 1000),
         "lenet": lambda: zoo.lenet(batch=max_batch),
         "adult_mlp": lambda: zoo.adult_mlp(batch=max_batch),
     }
@@ -68,6 +77,18 @@ def resolve_spec(model: str, max_batch: int, n_classes: int,
         raise ValueError(f"unknown model {model!r}: expected a .prototxt "
                          f"path or one of {sorted(builders)}")
     return builders[model]()
+
+
+def build_net(model: str, weights: Optional[str], max_batch: int,
+              n_classes: Optional[int], crop: Optional[int], seed: int,
+              device: Optional[str]) -> TorchNet:
+    """A zoo name or a `.prototxt` path -> a TorchNet on `device` with
+    seeded weights, or those of `weights` (`.npz` or `.caffemodel`)."""
+    net = TorchNet(resolve_spec(model, max_batch, n_classes, crop),
+                   seed=seed, device=device)
+    if weights:
+        net.load_weights(weights)
+    return net
 
 
 def _demo_payload(net, seed: int = 0) -> dict:
@@ -86,6 +107,31 @@ def run_demo(server: InferenceServer, n: int, seed: int = 0) -> dict:
     for f in futures:
         f.result(timeout=120.0)
     return server.status()
+
+
+def run_router_demo(router: ModelRouter, n: int, seed: int = 0) -> dict:
+    """The multi-model smoke: n synthetic requests round-robined across
+    every local lane, then the router status."""
+    names = sorted(router.lanes)
+    futures = [router.submit(
+        names[i % len(names)],
+        _demo_payload(router.lanes[names[i % len(names)]].net, seed + i))
+        for i in range(n)]
+    for f in futures:
+        f.result(timeout=120.0)
+    return router.status()
+
+
+def parse_models_arg(spec: str):
+    """--models 'name=zoo_or_prototxt[,name=...]' -> [(name, source)]."""
+    out = []
+    for part in spec.split(","):
+        name, sep, src = part.partition("=")
+        if not sep or not name or not src:
+            raise SystemExit(f"--models entry {part!r} is not "
+                             f"name=model_source")
+        out.append((name.strip(), src.strip()))
+    return out
 
 
 def parse_weights_arg(spec: Optional[str]) -> dict:
@@ -107,22 +153,8 @@ def parse_weights_arg(spec: Optional[str]) -> dict:
 
 #: flags of later slices: (dest, value when unset, ROADMAP item)
 LATER_FLAGS = (
-    ("models", None, "the router over models (serve/router.py): "
-                     "ROADMAP A10a"),
-    ("router_workers", None, "the router's shared pool: ROADMAP A10a"),
     ("graph", None, "the graph backend (backend/graph_net.py): "
                     "ROADMAP A12"),
-    ("binary_port", None, "the binary frontend (serve/binary_frontend.py):"
-                          " ROADMAP A10a"),
-    ("binary_host", None, "the binary frontend (serve/binary_frontend.py):"
-                          " ROADMAP A10a"),
-    ("no_shm", False, "the binary frontend's shared-memory transport "
-                      "(serve/shm.py): ROADMAP A10a"),
-    ("io_threads", None, "the binary frontend's event loop: ROADMAP A10a"),
-    ("hedge", False, "hedged requests in the router: ROADMAP A10a"),
-    ("hedge_budget", None, "hedged requests in the router: ROADMAP A10a"),
-    ("coalesce", False, "coalesced batch formation in the router: "
-                        "ROADMAP A10a"),
     ("autoscale", False, "the fleet controller (fleet/): ROADMAP A10b"),
     ("fleet_min", None, "the fleet controller (fleet/): ROADMAP A10b"),
     ("fleet_max", None, "the fleet controller (fleet/): ROADMAP A10b"),
@@ -147,29 +179,8 @@ LATER_FLAGS = (
 def _add_later_flags(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's flags of later slices, parsed so that each can stop
     with its ROADMAP item (defaults None/False = "not given")."""
-    p.add_argument("--models", default=None, metavar="N=SRC[,N=SRC...]",
-                   help="multi-model mode (not ported: ROADMAP A10a)")
-    p.add_argument("--router-workers", type=int, default=None,
-                   help="router pool threads (not ported: ROADMAP A10a)")
     p.add_argument("--graph", default=None,
                    help="serialized graph model (not ported: ROADMAP A12)")
-    p.add_argument("--binary-port", type=int, default=None,
-                   help="binary data plane (not ported: ROADMAP A10a)")
-    p.add_argument("--binary-host", default=None,
-                   help="bind host for --binary-port (not ported: ROADMAP "
-                   "A10a)")
-    p.add_argument("--no-shm", action="store_true",
-                   help="binary shm transport off (not ported: ROADMAP "
-                   "A10a)")
-    p.add_argument("--io-threads", type=int, default=None,
-                   help="binary event-loop threads (not ported: ROADMAP "
-                   "A10a)")
-    p.add_argument("--hedge", action="store_true",
-                   help="hedge slow requests (not ported: ROADMAP A10a)")
-    p.add_argument("--hedge-budget", type=float, default=None,
-                   help="hedging budget (not ported: ROADMAP A10a)")
-    p.add_argument("--coalesce", action="store_true",
-                   help="coalesced formation (not ported: ROADMAP A10a)")
     p.add_argument("--autoscale", action="store_true",
                    help="the fleet control plane (not ported: ROADMAP "
                    "A10b)")
@@ -207,6 +218,12 @@ def main(argv=None) -> None:
     p.add_argument("--model-name", default="default",
                    help="serving name for --model (metric label + "
                    "/v1/models/<name>/infer route)")
+    p.add_argument("--models", default=None, metavar="N=SRC[,N=SRC...]",
+                   help="multi-model mode: comma-separated name=source "
+                   "pairs served by one ModelRouter over a shared pool "
+                   "(sources are zoo names / .prototxt paths)")
+    p.add_argument("--router-workers", type=int, default=2,
+                   help="shared pool threads in --models mode (default 2)")
     p.add_argument("--weights", default=None,
                    help="weights to load: .npz (WeightCollection) or "
                    ".caffemodel (default: seeded random)")
@@ -216,7 +233,9 @@ def main(argv=None) -> None:
                    help="weight-init generator seed")
     p.add_argument("--checkpoint-dir", default=None,
                    help="watch this train-checkpoint dir (local or "
-                   "gs://|s3://) and hot-swap verified new steps")
+                   "gs://|s3://) and hot-swap verified new steps. In "
+                   "--models mode: a template with {model} substituted, "
+                   "e.g. gs://bkt/runs/{model}/ck")
     p.add_argument("--poll-interval", type=float, default=2.0,
                    help="seconds between checkpoint-dir polls")
     p.add_argument("--poll-jitter", type=float, default=0.1,
@@ -224,7 +243,9 @@ def main(argv=None) -> None:
                    "is jittered by (default 0.1)")
     p.add_argument("--replica-name", default="local",
                    help="the replica label on the freshness gauges")
-    p.add_argument("--n-classes", type=int, default=10)
+    p.add_argument("--n-classes", type=int, default=None,
+                   help="classifier width of a zoo CaffeNet (default: "
+                   "its published 1000)")
     p.add_argument("--crop", type=int, default=None)
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
@@ -259,6 +280,34 @@ def main(argv=None) -> None:
     p.add_argument("--http-host", default="127.0.0.1",
                    help='bind host for --http-port ("0.0.0.0" for '
                    "cross-host clients)")
+    p.add_argument("--binary-port", type=int, default=None,
+                   help="serve the binary frame data plane (length-"
+                   "prefixed tensor frames over a selectors event loop; "
+                   "serve/wire.py format) on this port (0 = ephemeral)")
+    p.add_argument("--binary-host", default="127.0.0.1",
+                   help='bind host for --binary-port ("0.0.0.0" for '
+                   "cross-host clients)")
+    p.add_argument("--no-shm", action="store_true",
+                   help="disable the shared-memory transport (spkn-shm) "
+                   "on the binary frontend (same-host peers then send "
+                   "tensor payloads inline over the socket)")
+    p.add_argument("--io-threads", type=int, default=2,
+                   help="binary frontend event-loop threads (default 2)")
+    p.add_argument("--hedge", action="store_true",
+                   help="request hedging in --models mode: after an "
+                   "adaptive delay (the model's live routed-latency "
+                   "quantile) re-issue an in-flight request to a second "
+                   "healthy replica; first answer wins, the loser is "
+                   "cancelled best-effort")
+    p.add_argument("--hedge-budget", type=float, default=0.05,
+                   help="max fraction of routed requests that may hedge "
+                   "(default 0.05); hedging also disables itself under "
+                   "admission pressure")
+    p.add_argument("--coalesce", action="store_true",
+                   help="coalesced batch formation (--models mode): when "
+                   "every replica of a model reports under-filled "
+                   "batches, focus consecutive requests on ONE replica "
+                   "per formation window (rotating for fairness)")
     p.add_argument("--request-journal", default=None, metavar="PATH",
                    help="journal every data-plane request as JSONL")
     p.add_argument("--tenant-rate", type=float, default=None,
@@ -310,28 +359,55 @@ def main(argv=None) -> None:
     log = default_logger(args.workdir, name="serving")
     buckets = (tuple(int(b) for b in args.buckets.split(","))
                if args.buckets else None)
+    hists: dict = {}
     if args.buckets_from and buckets is None:
-        from .buckets import derive_buckets, size_hist_from_jsonl
+        from .buckets import size_hist_from_jsonl
         hists = size_hist_from_jsonl(args.buckets_from)
-        # this model's recorded traffic when the rows carry its name,
-        # else every model's merged
-        hist = hists.get(args.model_name)
-        if hist is None:
-            hist = {}
-            for h in hists.values():
-                for s, n in h.items():
-                    hist[s] = hist.get(s, 0) + n
-        buckets = derive_buckets(hist, args.max_batch, k=args.buckets_k)
-        log.log(f"bucket ladder derived from {len(args.buckets_from)} "
-                f"JSONL(s): {list(buckets)}")
+    derived: dict = {}
+
+    def lane_buckets(name: str):
+        """Explicit --buckets win; then the ladder derived from this
+        model's recorded traffic when the rows carry its name, else from
+        every model's merged."""
+        if buckets is not None or not args.buckets_from:
+            return buckets
+        if name not in derived:
+            from .buckets import derive_buckets
+            hist = hists.get(name)
+            if hist is None:
+                hist = {}
+                for h in hists.values():
+                    for size, n in h.items():
+                        hist[size] = hist.get(size, 0) + n
+            derived[name] = derive_buckets(hist, args.max_batch,
+                                           k=args.buckets_k)
+            log.log(f"bucket ladder for {name} derived from "
+                    f"{len(args.buckets_from)} JSONL(s): "
+                    f"{list(derived[name])}")
+        return derived[name]
+
     quant = args.quant
     if quant and args.quant_tol is not None:
         from ..model.quant import QuantConfig
         quant = QuantConfig(mode=args.quant, rtol=args.quant_tol,
                             atol=args.quant_tol)
 
-    # one admission door for the data plane; the priority-aware door
-    # also reads X-Priority
+    def lane_cfg(name: str, checkpoint_dir: Optional[str]) -> ServeConfig:
+        return ServeConfig(
+            model_name=name, max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms, buckets=lane_buckets(name),
+            slo_p99_ms=args.slo_p99_ms,
+            outputs=tuple(args.outputs.split(",")) if args.outputs
+            else None,
+            checkpoint_dir=checkpoint_dir,
+            poll_interval_s=args.poll_interval,
+            poll_jitter=args.poll_jitter,
+            replica_name=args.replica_name, canary=not args.no_canary,
+            quant=quant)
+
+    # ONE admission door shared by both data planes (a tenant's budget
+    # is a property of the tenant, not of the wire it arrived on); the
+    # priority-aware door also reads X-Priority / the frame's priority
     tenants = None
     if args.tenant_rate:
         from .admission import PriorityAdmission
@@ -339,26 +415,26 @@ def main(argv=None) -> None:
             args.tenant_rate, args.tenant_burst,
             weights=parse_weights_arg(args.tenant_weights))
     # request journal (off by default): one JSONL row per data-plane
-    # request — echo off, this is a data file
+    # request, shared by both frontends — echo off, this is a data file
     journal = (Logger(jsonl_path=args.request_journal, echo=False)
                if args.request_journal else None)
 
-    net = TorchNet(resolve_spec(args.model, args.max_batch, args.n_classes,
-                                args.crop),
-                   seed=args.seed, device=args.device)
-    if args.weights:
-        net.load_weights(args.weights)
-    cfg = ServeConfig(
-        model_name=args.model_name, max_batch=args.max_batch,
-        max_wait_ms=args.max_wait_ms, buckets=buckets,
-        slo_p99_ms=args.slo_p99_ms,
-        outputs=tuple(args.outputs.split(",")) if args.outputs else None,
-        checkpoint_dir=args.checkpoint_dir,
-        poll_interval_s=args.poll_interval, poll_jitter=args.poll_jitter,
-        replica_name=args.replica_name, canary=not args.no_canary,
-        quant=quant, status_port=args.status_port,
-        heartbeat_path=args.heartbeat,
-        heartbeat_every_s=args.heartbeat_every)
+    def make_frontends(backend) -> list:
+        """The data planes the flags asked for: HTTP and/or binary."""
+        from .binary_frontend import BinaryFrontend
+        fes = []
+        if args.http_port is not None:
+            fes.append(HttpFrontend(backend, args.http_port,
+                                    args.http_host, tenants=tenants,
+                                    logger=log, journal=journal))
+        if args.binary_port is not None:
+            fes.append(BinaryFrontend(backend, args.binary_port,
+                                      args.binary_host,
+                                      io_threads=args.io_threads,
+                                      tenants=tenants, logger=log,
+                                      enable_shm=not args.no_shm,
+                                      journal=journal))
+        return fes
 
     from ..obs import trace as obs_trace
 
@@ -369,18 +445,47 @@ def main(argv=None) -> None:
             from ..obs import reqtrace
             stack.enter_context(reqtrace.request_tracing(
                 args.request_trace, head_sample=args.trace_head_sample))
-        server = stack.enter_context(InferenceServer(net, cfg, logger=log))
-        frontend = None
-        if args.http_port is not None:
-            frontend = HttpFrontend(server, args.http_port, args.http_host,
-                                    tenants=tenants, logger=log,
-                                    journal=journal)
+        if args.models:
+            router = ModelRouter(
+                RouterConfig(workers=args.router_workers,
+                             status_port=args.status_port,
+                             heartbeat_path=args.heartbeat,
+                             heartbeat_every_s=args.heartbeat_every,
+                             hedge=args.hedge,
+                             hedge_budget=args.hedge_budget,
+                             coalesce=args.coalesce),
+                logger=log)
+            if tenants is not None:
+                # hedging reads the admission door's pressure: a shedding
+                # door must not pay for duplicate requests
+                router.attach_admission(tenants)
+            for name, src in parse_models_arg(args.models):
+                ck = (args.checkpoint_dir.format(model=name)
+                      if args.checkpoint_dir else None)
+                router.add_model(
+                    name, build_net(src, None, args.max_batch,
+                                    args.n_classes, args.crop, args.seed,
+                                    args.device),
+                    cfg=lane_cfg(name, ck))
+            backend = stack.enter_context(router)
+            run_fn = (lambda: run_router_demo(router, args.demo))
+        else:
+            net = build_net(args.model, args.weights, args.max_batch,
+                            args.n_classes, args.crop, args.seed,
+                            args.device)
+            cfg = lane_cfg(args.model_name, args.checkpoint_dir)
+            cfg.status_port = args.status_port
+            cfg.heartbeat_path = args.heartbeat
+            cfg.heartbeat_every_s = args.heartbeat_every
+            backend = stack.enter_context(InferenceServer(net, cfg,
+                                                          logger=log))
+            run_fn = (lambda: run_demo(backend, args.demo))
+        frontends = make_frontends(backend)
         try:
-            _serve_until_done(server.status, args, log,
-                              run_fn=lambda: run_demo(server, args.demo))
+            _serve_until_done(backend.status, args, log, run_fn=run_fn)
         finally:
-            if frontend is not None:
-                frontend.stop()
+            for fe in frontends:
+                fe.stop()
 
 
 def _serve_until_done(status_fn, args, log: Logger, run_fn) -> None:

@@ -70,12 +70,16 @@ class DeadlineExpiredError(RuntimeError):
     arrival — better an immediate, honest shed than a late response)."""
 
 
-@dataclass
+@dataclass(eq=False)
 class ServeRequest:
     """One queued inference request: per-example input arrays (no batch
     dim), the future its response lands on, its enqueue time (the
     latency clock starts at submit, not at batch formation), and an
-    optional absolute client deadline on the same perf_counter clock."""
+    optional absolute client deadline on the same perf_counter clock.
+    Requests compare by identity (`eq=False`): a field-wise `==` would
+    compare the payloads' arrays, whose truth value numpy refuses — the
+    queue's `remove` in `cancel` must find THIS request, not an equal
+    one."""
 
     payload: Dict[str, np.ndarray]
     future: Future = field(default_factory=Future)

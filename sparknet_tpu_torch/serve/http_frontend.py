@@ -4,12 +4,10 @@ port's serving replica.
 The counterpart of `sparknet_tpu/serve/http_frontend.py`: persistent
 connections, wire decode on the accept threads, tenant and priority
 admission, deadline-aware shedding, the request journal and trace-header
-propagation, in front of one `InferenceServer`. `BackendAdapter` is the
-seam the JAX package's two wires share; the port's takes an
-`InferenceServer` only — the `ModelRouter` backend and the binary frame
-transport arrive with ROADMAP A10a, and another backend raises TypeError.
-`NoReplicaError` and `UnknownModelError`, the router's exceptions in the
-JAX package, are defined here until then.
+propagation, in front of an `InferenceServer` or a `ModelRouter`.
+`BackendAdapter` is the seam both wires (this one and the binary frame
+transport, binary_frontend.py) ride, so a request behaves identically
+whichever wire carried it; another backend raises TypeError.
 
 Wire protocol (all under `/v1`):
 
@@ -65,13 +63,14 @@ Design rules carried from the serving core:
     per-tenant token buckets (when configured) shed a hot tenant's flood
     BEFORE it occupies queue slots.
 
-Transport-labeled metrics: the request/connection families carry
-`transport="http"` (the binary wire will register the same families with
-`transport="binary"`).
+Transport-labeled metrics: this frontend and the binary one register the
+SAME request/connection families with `transport="http"` /
+`transport="binary"`, so one scrape compares the two wires per code.
 
 `http_infer` at the bottom is the matching client (thread-cached
-keep-alive connections, npz wire format). With `meta={}` it also reports
-the response's status, served step and queue wait.
+keep-alive connections, npz wire format) — the router's remote-replica
+proxy rides it. With `meta={}` it also reports the response's status,
+served step and queue wait.
 """
 from __future__ import annotations
 
@@ -94,6 +93,7 @@ from ..utils.logger import Logger
 from .admission import (PriorityShedError, TenantAdmission,
                         TenantLimitError)
 from .batcher import DeadlineExpiredError, QueueFullError
+from .router import ModelRouter, NoReplicaError, UnknownModelError
 from .server import (InferenceServer, encode_outputs, net_input_specs,
                      pop_outputs)
 
@@ -103,15 +103,6 @@ NPZ_CONTENT_TYPE = "application/x-npz"
 # 429) only up to this size; past it the reply closes the connection —
 # shedding must not buy the flood full-body socket reads
 TENANT_SHED_DRAIN_BYTES = 64 << 10
-
-
-class UnknownModelError(KeyError):
-    """Request names a model this endpoint does not serve (HTTP 404)."""
-
-
-class NoReplicaError(RuntimeError):
-    """No replica can take the request (HTTP 503 + Retry-After): the
-    response a remote replica's shed maps back to."""
 
 
 class _BodyReadTimeout(Exception):
@@ -136,17 +127,19 @@ def _decode_npz(body: bytes) -> Dict[str, np.ndarray]:
 
 
 class BackendAdapter:
-    """One resolve/submit/coerce surface over the backend. The JAX
-    package's adapter also fronts a `ModelRouter`; the port's takes an
-    `InferenceServer` until the router is ported (ROADMAP A10a)."""
+    """Normalizes an `InferenceServer` or a `ModelRouter` behind one
+    resolve/submit/coerce surface. Both wire frontends (HTTP here, the
+    binary frame transport in binary_frontend.py) ride this seam, so a
+    request behaves identically whichever wire carried it. Another
+    backend raises TypeError."""
 
     def __init__(self, backend):
-        if not isinstance(backend, InferenceServer):
+        if not isinstance(backend, (InferenceServer, ModelRouter)):
             raise TypeError(
-                f"BackendAdapter takes an InferenceServer (got "
-                f"{type(backend).__name__}); a ModelRouter backend arrives "
-                f"with the router (ROADMAP A10a)")
+                f"BackendAdapter takes an InferenceServer or a ModelRouter "
+                f"(got {type(backend).__name__})")
         self.backend = backend
+        self.is_router = isinstance(backend, ModelRouter)
         # per-model input dtype coercion table (JSON floats arrive as
         # float64; coerce on the TRANSPORT thread so the worker never
         # pays)
@@ -157,20 +150,39 @@ class BackendAdapter:
                 for k, (_, dt) in net_input_specs(lane.net).items()}
 
     def lanes(self) -> Dict[str, InferenceServer]:
+        if self.is_router:
+            return self.backend.lanes
         return {self.backend.model_name: self.backend}
 
     def model_names(self) -> Tuple[str, ...]:
+        if self.is_router:
+            return tuple(sorted(set(self.backend.lanes)
+                                | set(self.backend.replicas)))
         return (self.backend.model_name,)
 
     def resolve(self, model: Optional[str]) -> str:
-        """None -> the sole served model."""
-        return self.backend.model_name if model is None else model
+        """None -> the sole served model; ambiguous None raises."""
+        if model is not None:
+            return model
+        names = self.model_names()
+        if len(names) != 1:
+            raise UnknownModelError(
+                f"the default-model route is ambiguous: this endpoint "
+                f"serves {list(names)}; name the model explicitly")
+        return names[0]
 
     def submit(self, model: str, payload: Dict[str, np.ndarray],
                deadline_s: Optional[float],
                priority: Optional[str] = None,
                outputs: Optional[Tuple[str, ...]] = None,
                trace=None):
+        if self.is_router:
+            # the router's remote legs only speak tensors — fold the
+            # outputs request back into the payload (the terminal
+            # frontend, or a local lane's submit, pops it again)
+            return self.backend.submit(
+                model, encode_outputs(payload, outputs),
+                deadline_s=deadline_s, priority=priority, trace=trace)
         if model != self.backend.model_name:
             raise UnknownModelError(model)
         return self.backend.submit(payload, deadline_s=deadline_s,
@@ -181,11 +193,25 @@ class BackendAdapter:
                payload: Dict[str, np.ndarray]) -> None:
         """Cast inputs to the net's schema dtypes IN PLACE, on the
         calling (transport) thread."""
+        names = self.model_names()
         specs = self.specs.get(
-            model if model is not None else self.backend.model_name, {})
+            model if model is not None
+            else (names[0] if len(names) == 1 else ""), {})
         for k, dt in specs.items():
             if k in payload and payload[k].dtype != dt:
                 payload[k] = payload[k].astype(dt)
+
+    def cancel(self, model: str, fut) -> bool:
+        """Best-effort cancel of a submitted request BY ITS FUTURE:
+        reaches the lane batcher's queue entry if the request hasn't
+        formed into a batch yet. Returns False when the future is not a
+        queued batcher future (already formed, remote-proxied, or a
+        router-chained wrapper) — the caller drops the cancel and the
+        request completes normally."""
+        lane = self.lanes().get(model)
+        if lane is None:
+            return False
+        return bool(lane.batcher.cancel(fut))
 
     def healthy(self) -> bool:
         return self.backend.healthy()
@@ -216,9 +242,9 @@ def register_transport_metrics(registry, transport: str):
 
 
 class HttpFrontend:
-    """HTTP/1.1 inference endpoint over an InferenceServer (the
-    `backend`). Port 0 binds ephemeral; the bound address is
-    `.address`."""
+    """HTTP/1.1 inference endpoint over an InferenceServer or a
+    ModelRouter (the `backend`). Port 0 binds ephemeral; the bound
+    address is `.address`."""
 
     transport = "http"
 
@@ -668,8 +694,8 @@ def lru_cache_get(tl: threading.local, attr: str, key, factory,
                   max_cached: int):
     """Thread-local keep-alive object cache with LRU bounding (dict
     insertion order is the LRU order; re-insertion moves to the tail).
-    http_infer's connection cache (the binary client's will share it) —
-    ONE copy of the cache-hygiene rules. Evictees get
+    Shared by http_infer's connection cache and binary_infer's client
+    cache — ONE copy of the cache-hygiene rules. Evictees get
     `.close()`d, exceptions swallowed (a dying socket must not fail the
     request that merely aged it out)."""
     cache = getattr(tl, attr, None)

@@ -20,9 +20,10 @@ quantized lane (`quant="int8"`, bfloat16 activations) fills bfloat16 CPU
 tensors instead of float32 arrays, so its host->device copy carries half
 the bytes; int inputs keep their schema dtype.
 
-One worker owns the net: batch forwards, weight swaps (between batches,
-via ModelManager) and the canary all run on it, so no lock guards the
-params. The worker parks in the batcher's wake-on-submit wait; periodic
+One worker owns the net (its own thread, or one pool thread of a
+`ModelRouter` holding the lane's `lane_lock`): batch forwards, weight
+swaps (between batches, via ModelManager) and the canary all run on it,
+so no lock guards the params. The worker parks in the batcher's wake-on-submit wait; periodic
 duties (the hot-reload poll, the heartbeat) run on their own cadence via
 the `wake_at` alarm, so an idle server polls and beats too
 (`serve_tick`, `duty_tick`).
@@ -324,6 +325,9 @@ class InferenceServer:
         self._bucket_buf: Dict[int, Dict[str, Any]] = {}
         self._bucket_dirty: Dict[int, set] = {}
         self._input_specs = net_input_specs(net)
+        # exactly one thread drives serve_tick at a time: the server's own
+        # worker, or one pool thread of a ModelRouter
+        self.lane_lock = threading.Lock()
         # periodic-duty cadence: the worker surfaces at least this often
         # for reload polls, heartbeats and liveness even with an empty
         # queue (bounded by 1 s so /healthz freshness works)
@@ -390,19 +394,23 @@ class InferenceServer:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def start(self, weights: Optional[Dict[str, np.ndarray]] = None
-              ) -> "InferenceServer":
+    def start(self, weights: Optional[Dict[str, np.ndarray]] = None,
+              thread: bool = True) -> "InferenceServer":
         """Install the initial weights — `weights`, a checkpoint flat map
         in the JAX package's layouts, or else the newest verified step of
         `checkpoint_dir`, or else the net's own — and start the worker
-        thread."""
+        thread. `thread=False` starts no worker (router mode: the
+        ModelRouter's shared pool drives `serve_tick` under
+        `lane_lock`)."""
         assert self._worker is None and not self._running, "already started"
         self.manager.load_initial(weights)
         self._running = True
         self._last_tick = time.monotonic()
-        self._worker = threading.Thread(target=self._run,
-                                        name="serve-worker", daemon=True)
-        self._worker.start()
+        if thread:
+            self._worker = threading.Thread(target=self._run,
+                                            name="serve-worker",
+                                            daemon=True)
+            self._worker.start()
         if self.cfg.status_port is not None:
             self._start_http(self.cfg.status_port)
         return self
@@ -496,9 +504,11 @@ class InferenceServer:
         self._t0 = time.time()
 
     def healthy(self) -> bool:
-        """Liveness: the serving thread ticked recently (a wedged forward
-        or a dead thread flips /healthz to 503, not hangs it)."""
-        alive = self._worker is not None and self._worker.is_alive()
+        """Liveness: the serving thread (its own worker, or the router's
+        pool) ticked recently (a wedged forward or a dead thread flips
+        /healthz to 503, not hangs it)."""
+        alive = (self._worker.is_alive() if self._worker is not None
+                 else self._running)
         fresh = (time.monotonic() - self._last_tick) < max(
             3 * self._duty_s, 2.0)
         return alive and fresh
@@ -507,13 +517,14 @@ class InferenceServer:
 
     def _run(self) -> None:
         while self._running:
-            self.serve_tick()
+            with self.lane_lock:
+                self.serve_tick()
 
     def serve_tick(self, wake_at: Optional[float] = None) -> bool:
         """One worker iteration: park for a batch (wake-on-submit; surface
         at `wake_at` — default now + the duty cadence — for periodic
         duties), serve it, then run the duties. Returns True when a batch
-        was served. Only the worker thread calls it."""
+        was served. Only the thread holding `lane_lock` calls it."""
         self._last_tick = time.monotonic()
         if wake_at is None:
             wake_at = time.perf_counter() + self._duty_s

@@ -7,7 +7,8 @@ registry they also register the shared-schema metrics
 (sparknet_train_phase_seconds_total, sparknet_serve_request_latency_seconds,
 sparknet_serve_batch_*, ...) and update them on every mutation. They carry
 their own locks: `summary()` / `snapshot()` readers get a CONSISTENT view
-of state a worker thread is mutating. `PhaseTimers.phase(...)` also emits a host-side trace span (obs.trace).
+of state a worker thread is mutating. `PhaseTimers.phase(...)` also
+emits a host-side trace span (obs.trace).
 """
 from __future__ import annotations
 
@@ -175,7 +176,8 @@ class LatencyStats:
                           ) -> Optional[float]:
         """Exact order statistic (SECONDS) over the observations of the
         last `window_s` seconds, or None if the window holds nothing —
-        the request tracer's "beyond the live p95" threshold."""
+        the request tracer's "beyond the live p95" threshold and the
+        router's hedge delay."""
         cutoff = time.monotonic() - float(window_s)
         with self._lock:
             xs = sorted(v for v, t in zip(self._obs, self._obs_t)
@@ -272,9 +274,10 @@ class FillMeter:
     def recent_occupancy(self, capacity: int,
                          n: int = 16) -> Optional[float]:
         """Mean real rows per recent batch as a fraction of `capacity`
-        (max_batch), or None with no recent batches. Bucket-relative fill
-        is blind to a fragmented trickle (a single request pads into
-        bucket 1 at fill 1.0); occupancy against capacity is not."""
+        (max_batch), or None with no recent batches: the router's
+        coalescing trigger. Bucket-relative fill is blind to a fragmented
+        trickle (a single request pads into bucket 1 at fill 1.0);
+        occupancy against capacity is not."""
         with self._lock:
             tail = list(self._recent)[-int(n):]
         if not tail or capacity <= 0:

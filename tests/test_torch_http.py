@@ -588,8 +588,17 @@ def test_http_infer_connection_cache_is_lru_bounded():
 
 
 def test_the_frontend_takes_an_inference_server_only(nets):
-    with pytest.raises(TypeError, match="ROADMAP A10a"):
-        hf.BackendAdapter(object())
+    """The adapter takes an InferenceServer or a ModelRouter (the router
+    backend is held to the JAX package's in test_torch_router.py); any
+    other backend raises TypeError, naming what it takes."""
+    from sparknet_tpu_torch.serve.router import ModelRouter
+    srv = InferenceServer(nets["port"], ServeConfig(max_batch=4))
+    assert not hf.BackendAdapter(srv).is_router
+    assert hf.BackendAdapter(ModelRouter()).is_router
+    for other in (object(), nets["jax"], JaxServer(nets["jax"])):
+        with pytest.raises(TypeError,
+                           match="InferenceServer or a ModelRouter"):
+            hf.BackendAdapter(other)
 
 
 def test_a_reply_carries_the_step_whose_weights_computed_it():

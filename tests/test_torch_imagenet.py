@@ -29,12 +29,14 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch.multiprocessing.spawn import ProcessException
 
 from sparknet_tpu.apps import imagenet_app as jax_app
 from sparknet_tpu.apps.train_loop import resolve_spec as jax_resolve_spec
@@ -290,26 +292,69 @@ def test_the_app_matches_the_jax_app(corpus, tmp_path, monkeypatch):
     _held(_records(tmp_path / "port"), want)
 
 
+def _ranks_report(ctx, t0, store, workdir):
+    """What each rank got to and when (seconds after the spawn, from the
+    phase marks torch_imagenet_worker writes), whether it is alive, and
+    the FileStore's state: a failure of the two-rank test says whether the
+    ranks were held at the rendezvous, in training, or finished."""
+    lines = [f"elapsed {time.time() - t0:.1f} s of SPAWN_TIMEOUT_S "
+             f"{SPAWN_TIMEOUT_S}; FileStore {store} "
+             + (f"{store.stat().st_size} bytes" if store.exists()
+                else "absent")]
+    for rank, p in enumerate(ctx.processes):
+        marks = Path(f"{workdir}_w{rank}.phases")
+        phases = ([json.loads(x) for x in marks.read_text().splitlines()]
+                  if marks.exists() else [])
+        lines.append(
+            f"rank {rank}: pid {p.pid} alive {p.is_alive()} exitcode "
+            f"{p.exitcode}; " + (", ".join(
+                f"{m['phase']} +{m['t'] - t0:.1f} s" for m in phases)
+                or "no phase reached"))
+    return "\n".join(lines)
+
+
+def _records_diff(got, want):
+    gl = [x["loss"] for x in got if "loss" in x]
+    wl = [x["loss"] for x in want if "loss" in x]
+    rel = [abs(g - w) / abs(w) for g, w in zip(gl, wl)]
+    return (f"losses {gl} against the JAX mesh's {wl}, largest relative "
+            f"difference {max(rel, default=float('nan')):.3e} (rtol 1e-4); "
+            f"test accuracies "
+            f"{[x['test_accuracy'] for x in got if 'test_accuracy' in x]} "
+            f"against "
+            f"{[x['test_accuracy'] for x in want if 'test_accuracy' in x]}")
+
+
 def test_two_gloo_ranks_match_a_jax_mesh_of_two(corpus, tmp_path):
     want = _jax_main(corpus, tmp_path / "jax", 2)
     params = {l: {p: t.numpy() for p, t in lp.items()}
               for l, lp in _start_params(corpus, 2).items()}
     argv = ["--device", "cpu", "--data-dir", str(corpus), *OVERRIDES,
             f"model={corpus / 'tiny.prototxt'}"]
+    store, workdir = tmp_path / "store", tmp_path / "port"
+    t0 = time.time()
     ctx = mp.spawn(torch_imagenet_worker.run,
-                   args=(2, str(tmp_path / "store"), params, argv,
-                         str(tmp_path / "port")),
+                   args=(2, str(store), params, argv, str(workdir)),
                    nprocs=2, join=False)
-    deadline = SPAWN_TIMEOUT_S
-    while not ctx.join(timeout=5):
-        deadline -= 5
-        if deadline <= 0:
-            for p in ctx.processes:
-                p.kill()
-            pytest.fail(f"the two ranks did not finish in "
-                        f"{SPAWN_TIMEOUT_S} s")
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > SPAWN_TIMEOUT_S:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail(f"the two ranks did not finish in "
+                            f"{SPAWN_TIMEOUT_S} s\n"
+                            + _ranks_report(ctx, t0, store, workdir))
+    except ProcessException as e:
+        pytest.fail(f"a rank failed: {e}\n"
+                    + _ranks_report(ctx, t0, store, workdir))
     for rank in range(2):
-        _held(_records(f"{tmp_path / 'port'}_w{rank}"), want)
+        got = _records(f"{workdir}_w{rank}")
+        try:
+            _held(got, want)
+        except AssertionError as e:
+            pytest.fail(f"rank {rank}'s records differ from the JAX "
+                        f"mesh's: {e!r}\n{_records_diff(got, want)}\n"
+                        + _ranks_report(ctx, t0, store, workdir))
 
 
 def test_the_cli_trains_on_the_cpu(corpus, tmp_path):

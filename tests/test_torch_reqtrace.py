@@ -1,16 +1,28 @@
 """The port's request tracing (obs/reqtrace.py) against the JAX package's.
 
-`obs/reqtrace.py` is a copy of the JAX module (less its selfcheck, which
-drives the binary frontend): context mint, encode and parse; the
-tail-sampling policy; bounded buffers under a flood; per-process clock
-offsets; the shard round trip and assembly — each checked on the same
+`obs/reqtrace.py` is a copy of the JAX module: context mint, encode and
+parse; the tail-sampling policy; bounded buffers under a flood;
+per-process clock offsets; the shard round trip and assembly — each checked on the same
 inputs through both packages, exactly (the rows are the same numbers).
 Over HTTP, the port's frontend echoes the client's `X-Trace-Id` and its
 server records the admission, decode, queue, form, forward and depad
-stages, as the JAX frontend and server do.
+stages, as the JAX frontend and server do. Over the binary wire the
+server's request row carries the client's span id and the same stages,
+with the client's `wire:binary` span, as in the JAX package; a router
+fronted directly mints the context and its proxy hop joins the same
+trace; a hedged request's server rows carry leg=primary and leg=hedge
+once each (both legs held at gates until both have arrived, so the hedge
+fires without timing). The live two-process selfcheck
+(`python -m sparknet_tpu_torch.obs.reqtrace --selfcheck`) assembles one
+trace across a router here and a replica in a child process.
 """
 import http.client
 import json
+import os
+import subprocess
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -20,6 +32,12 @@ from sparknet_tpu import zoo as jax_zoo
 from sparknet_tpu.net_api import JaxNet
 from sparknet_tpu.obs import reqtrace as jax_rt
 from sparknet_tpu.serve.batcher import QueueFullError as JaxQueueFull
+from sparknet_tpu.serve.binary_frontend import \
+    BinaryFrontend as JaxBinaryFrontend
+from sparknet_tpu.serve.binary_frontend import \
+    binary_infer as jax_binary_infer
+from sparknet_tpu.serve.router import ModelRouter as JaxRouter
+from sparknet_tpu.serve.router import RouterConfig as JaxRouterConfig
 from sparknet_tpu.serve.http_frontend import HttpFrontend as JaxFrontend
 from sparknet_tpu.serve.server import InferenceServer as JaxServer
 from sparknet_tpu.serve.server import ServeConfig as JaxServeConfig
@@ -35,6 +53,9 @@ from sparknet_tpu_torch.serve.http_frontend import (NPZ_CONTENT_TYPE,
                                                     NoReplicaError,
                                                     UnknownModelError,
                                                     _encode_npz)
+from sparknet_tpu_torch.serve.binary_frontend import (BinaryFrontend,
+                                                      binary_infer)
+from sparknet_tpu_torch.serve.router import ModelRouter, RouterConfig
 from sparknet_tpu_torch.serve.server import InferenceServer, ServeConfig
 
 torch.set_num_threads(2)
@@ -207,8 +228,13 @@ def test_shard_round_trip_loader_and_cli(tmp_path, capsys):
     table = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert {t["trace"] for t in table} == set(asm)
     assert len(list(out.glob("trace-*.json"))) == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        reqtrace.main(["--selfcheck"])
+    # --selfcheck runs the live two-process proof (a router here, a
+    # replica behind the binary frontend in a child) and keeps its trace
+    keep = tmp_path / "selfcheck"
+    assert reqtrace.main(["--selfcheck", "--keep", str(keep),
+                          "--device", "cpu"]) == 0
+    assert "selfcheck OK" in capsys.readouterr().out
+    assert len(list(keep.glob("trace-*.json"))) == 1
 
 
 def test_request_tracing_context_manager_flushes(tmp_path):
@@ -274,3 +300,201 @@ def test_the_trace_header_is_echoed_over_http_with_the_jax_stages():
     assert stages["port"] == stages["jax"]
     assert {"admission", "decode", "queue", "form", "forward",
             "depad"} <= stages["port"]
+
+
+# -- the binary wire, the router, hedges --------------------------------------
+
+def _rows_until(tr, pred, timeout=30.0):
+    """The tracer's buffered rows once `pred(rows)` holds (completion
+    callbacks may land just after the client's future resolves)."""
+    deadline = time.monotonic() + timeout
+    rows = []
+    while time.monotonic() < deadline:
+        rows = rows + tr.drain_rows()
+        if pred(rows):
+            return rows
+        time.sleep(0.005)
+    raise AssertionError(f"rows never satisfied the predicate: {rows}")
+
+
+PKG = {"port": (InferenceServer, ServeConfig, BinaryFrontend, binary_infer,
+                ModelRouter, RouterConfig),
+       "jax": (JaxServer, JaxServeConfig, JaxBinaryFrontend,
+               jax_binary_infer, JaxRouter, JaxRouterConfig)}
+
+
+def _lenets():
+    jnet = JaxNet(jax_zoo.lenet(batch=2), seed=1)
+    tnet = TorchNet(zoo.lenet(batch=2), device="cpu")
+    tnet.load_jax_params({l: {p: np.asarray(v) for p, v in lp.items()}
+                          for l, lp in jnet.params.items()})
+    return {"port": tnet, "jax": jnet}
+
+
+_CFG = dict(max_batch=2, max_wait_ms=1.0, buckets=(1, 2), outputs=("prob",),
+            metrics_every_batches=0)
+_X = {"data": np.ones((28, 28, 1), np.float32)}
+
+
+def test_the_trace_rides_the_binary_wire_as_in_the_jax_package():
+    seen = {}
+    for k, net in _lenets().items():
+        srv_cls, cfg_cls, fe_cls, infer, _, _ = PKG[k]
+        rt = MODS[k]
+        with rt.request_tracing(None, head_sample=1.0, proc="t") as tr, \
+                srv_cls(net, cfg_cls(**_CFG)) as srv:
+            fe = fe_cls(srv, port=0)
+            try:
+                ctx = tr.mint(sampled=True)
+                cli_rec = tr.begin(ctx, transport="cli")
+                out = infer(fe.address, "default", _X, trace=ctx)
+                tr.finish(cli_rec, "ok")
+                assert np.asarray(out["prob"]).shape == (10,)
+                rows = _rows_until(tr, lambda rs: any(
+                    r["k"] == "r" and r["transport"] == "binary"
+                    for r in rs))
+            finally:
+                fe.stop()
+        req = [r for r in rows
+               if r["k"] == "r" and r["transport"] == "binary"]
+        assert len(req) == 1, k
+        assert (req[0]["trace"], req[0]["span"], req[0]["outcome"]) == \
+            (ctx.trace_id, ctx.span_id, "ok"), k
+        wire_spans = [r for r in rows
+                      if r["k"] == "s" and r.get("kind") == "client"]
+        assert [(w["span"], w["name"]) for w in wire_spans] == \
+            [(ctx.span_id, "wire:binary")], k
+        seen[k] = {r["name"] for r in rows
+                   if r["k"] == "s" and r.get("kind") == "server"}
+    assert seen["port"] == seen["jax"]
+    assert {"admission", "decode", "queue", "form", "forward",
+            "reply"} <= seen["port"]
+
+
+def test_a_router_mints_and_its_proxy_hop_joins_the_trace():
+    shapes = {}
+    for k, net in _lenets().items():
+        srv_cls, cfg_cls, fe_cls, _, router_cls, rcfg_cls = PKG[k]
+        rt = MODS[k]
+        with rt.request_tracing(None, head_sample=1.0, proc="t") as tr, \
+                srv_cls(net, cfg_cls(**_CFG)) as srv:
+            fe = fe_cls(srv, port=0)
+            router = router_cls(rcfg_cls(workers=2, hedge=False))
+            router.add_remote_replica(
+                "default", f"spkn://{fe.address[0]}:{fe.address[1]}")
+            try:
+                with router:
+                    out = router.infer("default", _X, timeout=30.0)
+                assert np.asarray(out["prob"]).shape == (10,)
+                rows = _rows_until(
+                    tr, lambda rs: sum(r["k"] == "r" for r in rs) >= 2)
+            finally:
+                fe.stop()
+        req = [r for r in rows if r["k"] == "r"]
+        assert len({r["trace"] for r in req}) == 1, k
+        by_transport = {r["transport"]: r for r in req}
+        assert set(by_transport) == {"router", "binary"}, k
+        assert by_transport["router"]["root"] is True
+        wire_spans = {r["span"] for r in rows
+                      if r["k"] == "s" and r.get("kind") == "client"}
+        assert by_transport["binary"]["span"] in wire_spans
+        assert by_transport["binary"]["span"] != \
+            by_transport["router"]["span"]
+        shapes[k] = sorted(set(by_transport["router"]) |
+                           set(by_transport["binary"]))
+    assert shapes["port"] == shapes["jax"]
+
+
+class _Gated:
+    def __init__(self, inner):
+        self._inner = inner
+        self.gate = threading.Event()
+        self.entered = threading.Event()
+
+    def __getattr__(self, k):
+        return getattr(self._inner, k)
+
+    def forward(self, *a, **kw):
+        self.entered.set()
+        assert self.gate.wait(timeout=60), "the test never opened the gate"
+        return self._inner.forward(*a, **kw)
+
+
+def test_hedge_legs_tagged_exactly_once():
+    """Both replicas hold their forwards on gates; with a zero hedge
+    delay the request's primary leg enters one and its hedge the other;
+    then both gates open. The server rows carry leg=primary and
+    leg=hedge exactly once each, in one trace."""
+    net = _lenets()["port"]
+    nets = [_Gated(net), _Gated(net)]
+    servers = [InferenceServer(n, ServeConfig(**_CFG)).start() for n in nets]
+    fes = [BinaryFrontend(s, port=0) for s in servers]
+    router = ModelRouter(RouterConfig(workers=4, hedge=True,
+                                      hedge_budget=1.0,
+                                      hedge_min_delay_ms=0.0))
+    for fe in fes:
+        router.add_remote_replica(
+            "default", f"spkn://{fe.address[0]}:{fe.address[1]}")
+    try:
+        with reqtrace.request_tracing(None, head_sample=1.0,
+                                      proc="t") as tr, router:
+            fut = router.submit("default", _X, deadline_s=60.0)
+            for n in nets:
+                assert n.entered.wait(timeout=30)
+            for n in nets:
+                n.gate.set()
+            assert np.asarray(fut.result(timeout=30)["prob"]).shape == (10,)
+
+            def both_legs(rs):
+                legs = [r.get("leg") for r in rs if r["k"] == "r"
+                        and r["transport"] == "binary"]
+                return "primary" in legs and "hedge" in legs
+            rows = _rows_until(tr, both_legs)
+    finally:
+        for n in nets:
+            n.gate.set()
+        for fe, s in zip(fes, servers):
+            fe.stop()
+            s.stop()
+    legs = [r.get("leg") for r in rows
+            if r["k"] == "r" and r["transport"] == "binary"]
+    assert sorted(legs) == ["hedge", "primary"], legs
+    assert len({r["trace"] for r in rows if r["k"] == "r"}) == 1
+
+
+def test_two_process_slow_request_assembles_one_trace(tmp_path):
+    """The selfcheck, in this process: a router here proxies a slowed
+    lenet request over the binary wire to a replica subprocess; the
+    assembled trace crosses both processes with a matched wire hop and
+    the forward (the planted 40 ms) dominating."""
+    keep = str(tmp_path / "selfcheck")
+    assert reqtrace._selfcheck(keep=keep, delay_ms=40.0, device="cpu") == 0
+    rows = reqtrace.load_shards([keep + "/shards"])
+    traces = reqtrace.assemble(rows)
+    crossing = [t for t in traces.values() if t["summary"]["procs"] >= 2]
+    assert crossing
+    s = max(crossing, key=lambda t: t["summary"]["total_ms"])["summary"]
+    assert s["hops"] >= 1
+    assert s["forward_ms"] >= 20.0
+    assert s["dominant"] == "forward"
+
+
+def test_the_selfcheck_command_passes():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "sparknet_tpu_torch.obs.reqtrace",
+         "--selfcheck", "--device", "cpu"], cwd=repo, capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("selfcheck OK: trace ")
+    assert "crossed 2 processes" in r.stdout
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the refusal on a machine with no card")
+def test_the_selfcheck_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    # without --device the replica's net goes to the card: with no card
+    # the selfcheck raises before it starts the child
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reqtrace.main(["--selfcheck", "--keep", str(tmp_path / "k")])
+    assert not (tmp_path / "k").exists()

@@ -238,7 +238,7 @@ def test_flags_of_later_slices_stop_naming_their_roadmap_item(
     if unset is False:
         argv.append(flag)
     else:
-        argv += [flag, {"models": "a=lenet", "graph": "g.pb",
+        argv += [flag, {"graph": "g.pb",
                         "history_dir": "h", "rollout_gate": "g.json",
                         "compile_cache": "c",
                         "fleet_provider": "none"}.get(dest, "2")]
@@ -277,3 +277,23 @@ def test_tenant_flags_build_the_door(tmp_path, capsys):
               str(tmp_path / "j.jsonl"), "--workdir", str(tmp_path)])
     st = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert st["requests_ok"] == 3
+
+
+@pytest.mark.parametrize("n_classes,want", [(None, 1000), (10, 10)],
+                         ids=["default", "10"])
+def test_caffenet_serves_its_published_1000_classes_unless_told(n_classes,
+                                                                want):
+    """`--n-classes` defaults to None, the zoo CaffeNet's published 1000
+    (the JAX CLI defaults to 10; ROADMAP C); given, both packages build
+    the same head."""
+    from sparknet_tpu.apps.train_loop import resolve_spec as jax_resolve
+    from sparknet_tpu.model.net import CompiledNet as JaxCompiledNet
+    from sparknet_tpu.utils.config import RunConfig
+    from sparknet_tpu_torch.model.net import CompiledNet
+
+    spec = app.resolve_spec("caffenet", 2, n_classes, 67)
+    assert CompiledNet.compile(spec).blob_shapes["fc8"] == (2, want)
+    jspec = jax_resolve(RunConfig(model="caffenet", local_batch=2,
+                                  n_classes=n_classes or 1000, crop=67))
+    assert tuple(JaxCompiledNet.compile(jspec).blob_shapes["fc8"]) == \
+        (2, want)
