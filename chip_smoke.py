@@ -4,8 +4,9 @@ CaffeNet on the card, through the ImageNet app from JPEG shards too,
 cached and streamed, from a directory and from a bucket, watched by its
 telemetry, through the loss of a worker, behind an HTTP port that
 hot-reloads a training step under traffic, with per-shard checkpoints, a
-host trace, the profiler and the relaunch supervisor, and behind a router
-with a remote replica over the binary wire and shared memory?
+host trace, the profiler and the relaunch supervisor, behind a router
+with a remote replica over the binary wire and shared memory, and as a
+fleet that grows, rolls out, heals and shrinks itself on its SLO?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -276,7 +277,48 @@ Phases, in order; any failure exits non-zero before the result line:
    which prints its counts at exit. Prints img/s and client p50/p99 per
    transport beside phases 9 and 3, the traced stages, hedges fired, won
    and cancelled, and coalesced picks.
-12. The kernels line, `{"kernels": [...]}`, then the result line
+12. The fleet: a `ModelRouter(workers=2, history=True, status_port=0)`
+   in this process with one full-width CaffeNet lane (crop 227, 1000
+   classes, float32, `max_batch=128`, buckets (1, 8, 64, 128), outputs
+   ("prob",)) that installs step 1 (the seed-0 weights) from a checkpoint
+   directory under a rollout gate, with `slo_p99_ms = S` and
+   `slo_availability = 0.999` (its `SloSpec` reads the router's routed
+   latency, which covers the grown replicas' replies); a
+   `BinaryFrontend` behind a
+   `PriorityAdmission` door; a `FleetController` (every 0.5 s, replicas
+   1..2, a 4 s window, the alerter's pages attached) growing replicas
+   through `SubprocessReplicaProvider`: the port's serve CLI in child
+   processes on the same card, each counting its forwards and lrn_fwd
+   launches. S comes from a calibration pass on a lone server: the
+   largest latency-histogram bound at most half the burst's server-side
+   p50 and at least 3x the trickle's client p99 (printed). Launch counters are
+   zeroed before the router starts. Then, in order: a burst of 8
+   closed-loop clients with 32 requests each in flight (priority high):
+   the page fires, the pressure reaches `page_pressure`, a
+   normal-priority request is shed, the controller grows a replica
+   ("slo_burn" in the audit) and it answers routed requests over
+   spkn://; step 2 is saved under the burst: the lane adopts it as the
+   canary, then the child (read from its heartbeat), then the gate reads
+   fleet-wide in the JAX `write_gate` schema; a corrupt step 3 (one
+   flipped byte): the canary rejects it, the rollout halts, the gate
+   denies it; the child is killed with SIGKILL: the controller names it
+   dead and grows a replacement. The burst ends; a fixed request to the
+   replacement alone is within 1e-6 of the lane's direct bucket-1
+   forward. A trickle of 1 client: the page resolves, the controller
+   drains and retires the replacement with no request dropped;
+   /fleet/status, /slo/status and /timeseries answer with the JAX
+   package's keys; every reply came from step 1 or 2, and from step 2
+   after it went fleet-wide; `python -m sparknet_tpu_torch.obs.slo`
+   builds the report from the history shards, and each of its windows
+   that missed S has a window the clients' own replies missed within
+   one history slot, and the reverse; lrn_fwd 2 launches per CaffeNet
+   forward in this process and in each child, float32. Prints the
+   calibration and S, the grow decision to the new replica's first
+   routed reply, img/s and client p50 / p99 before and after the grow,
+   the page's fire and resolve seconds, the rollout's canary to
+   fleet-wide seconds and the history's sample ms.
+13. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phase
+   12's launches and forwards per process), then the result line
    `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
@@ -3798,6 +3840,711 @@ def phase_router(card: str, phase3_img_s=None, phase9_img_s=None,
     return out
 
 
+#: the interpreter phase 12's grown replicas run: the provider spawns
+#: `<python> -m sparknet_tpu_torch.serve.app ...`, and this wrapper runs
+#: that module with its TorchNet forwards and lrn_fwd launches counted.
+#: The counts are rewritten to `<heartbeat>.counts.json` after every
+#: forward (a child killed with SIGKILL leaves its last complete count)
+#: and printed at exit; SIGTERM (the provider's retire) drains like Ctrl-C
+_FLEET_CHILD_SRC = r"""
+import atexit, json, os, runpy, signal, sys
+assert sys.argv[1] == "-m", sys.argv
+module, args = sys.argv[2], sys.argv[3:]
+out = args[args.index("--heartbeat") + 1] + ".counts.json"
+sys.argv = [module] + args
+from sparknet_tpu_torch.net_api import TorchNet
+from sparknet_tpu_torch.ops.cuda_lrn import lrn_fwd
+forwards = [0]
+_forward = TorchNet.forward
+
+def counts():
+    return {"lrn_fwd": lrn_fwd.launches, "bf16": lrn_fwd.bf16_launches,
+            "forwards": forwards[0], "pid": os.getpid()}
+
+def forward(self, *a, **kw):
+    r = _forward(self, *a, **kw)
+    forwards[0] += 1
+    with open(out + ".tmp", "w") as f:
+        json.dump(counts(), f)
+    os.replace(out + ".tmp", out)
+    return r
+
+def interrupt(*_):
+    raise KeyboardInterrupt
+
+TorchNet.forward = forward
+signal.signal(signal.SIGTERM, interrupt)
+atexit.register(lambda: print(json.dumps(counts()), flush=True))
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+#: the keys of the JAX package's /fleet/status (FleetController.status
+#: with an admission door and a rollout duty), /slo/status
+#: (BurnRateAlerter.state) and /timeseries bodies
+JAX_FLEET_STATUS_KEYS = {"enabled", "running", "interval_s", "window_s",
+                         "ticks", "pressure", "batch_starvation_s",
+                         "provider", "pool", "models", "retiring",
+                         "scale_events", "audit", "rollout", "admission"}
+JAX_SLO_STATUS_KEYS = {"specs", "alerts", "firing", "budget_remaining",
+                       "alerts_fired_total", "audit"}
+JAX_TIMESERIES_KEYS = {"name", "kind", "window_s", "res_s", "agg",
+                       "points", "quantile"}
+JAX_TIMESERIES_INDEX_KEYS = {"families", "rings", "samples_total"}
+#: the router's latency family: submit to answer, whichever replica
+#: answered (phase 12's latency objective)
+ROUTED_LATENCY = "sparknet_serve_routed_latency_seconds"
+
+
+def phase_fleet(card: str, device: str = "cuda", crop: int = 227,
+                clients: int = 8, depth: int = 32) -> dict:
+    """Phase 12: the fleet on the card (module docstring); returns the
+    launch counts of this process and of every grown replica. The
+    arguments let the phase be rehearsed on the CPU at a small crop
+    (counts then 0)."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import precision, zoo
+    from sparknet_tpu_torch.fleet import (FleetConfig, FleetController,
+                                          FleetPolicy,
+                                          SubprocessReplicaProvider,
+                                          read_gate)
+    from sparknet_tpu_torch.model.net import params_to_jax
+    from sparknet_tpu_torch.net_api import TorchNet
+    from sparknet_tpu_torch.obs import slo as slo_mod
+    from sparknet_tpu_torch.obs.history import read_history_shards
+    from sparknet_tpu_torch.obs.registry import DEFAULT_BUCKETS
+    from sparknet_tpu_torch.obs.slo import SloSpec
+    from sparknet_tpu_torch.ops.cuda_lrn import lrn_fwd
+    from sparknet_tpu_torch.serve.admission import (PriorityAdmission,
+                                                    PriorityShedError)
+    from sparknet_tpu_torch.serve.binary_frontend import (BinaryClient,
+                                                          BinaryFrontend)
+    from sparknet_tpu_torch.serve.router import ModelRouter, RouterConfig
+    from sparknet_tpu_torch.serve.server import (InferenceServer,
+                                                 ServeConfig, zeros_batch)
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+    from sparknet_tpu_torch.utils.heartbeat import read_heartbeat
+
+    precision.set_policy("float32")
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    spec = zoo.caffenet(batch=128, crop=crop, n_classes=1000)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    ck = os.path.join(root, "ck")
+    gate = os.path.join(root, "ROLLOUT.json")
+    hist_dir = os.path.join(root, "history")
+    rng = np.random.default_rng(12)
+    payloads = [{"data": (50.0 * rng.standard_normal((crop, crop, 3))
+                          ).astype(np.float32)} for _ in range(64)]
+    fixed = {"data": (50.0 * np.random.default_rng(112).standard_normal(
+        (crop, crop, 3))).astype(np.float32)}
+    lane_kw = dict(model_name="caffenet", max_batch=128,
+                   buckets=SERVE_BUCKETS, outputs=("prob",),
+                   max_wait_ms=2.0, metrics_every_batches=0)
+    out: dict = {}
+    t_phase = time.perf_counter()
+    router = fc = provider = None
+    fes = []
+    grows: list = []
+    mon_stop = threading.Event()
+
+    def wait_for(cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > timeout:
+                fail(f"fleet: {what} did not happen within {timeout:.0f} s"
+                     f" (audit {list(fc.audit)[-6:] if fc else None})")
+            time.sleep(0.02)
+        return time.perf_counter() - t0
+
+    def run_clients(n: int, per: int, addr, stop, rows, errors,
+                    priority: str = "high") -> list:
+        """`n` closed-loop clients on their own connections, each with
+        `per` requests in flight (submitted together, then collected);
+        rows get (send wall ts, reply wall ts, latency s, step)."""
+        def client(c: int) -> None:
+            cli = None
+            try:
+                cli = BinaryClient(*addr, timeout=300.0, use_shm=False)
+                i = 0
+                while not stop.is_set():
+                    rids = []
+                    for k in range(per):
+                        p = payloads[(c * 7 + i + k) % len(payloads)]
+                        rids.append((cli.submit(p, model="caffenet",
+                                                deadline_s=120.0,
+                                                priority=priority),
+                                     time.time()))
+                    i += per
+                    for rid, ts in rids:
+                        prob = cli.collect(rid)["prob"]
+                        lat = cli.last_timing["t_first_byte_s"]
+                        if prob.shape != (1000,) or \
+                                not np.isfinite(prob).all():
+                            errors.append(f"client {c}: prob {prob.shape}")
+                            return
+                        rows.append((ts, ts + lat, lat, cli.last_step))
+            except Exception as e:  # every request must answer
+                errors.append(f"client {c}: {e!r}")
+            finally:
+                if cli is not None:
+                    cli.close()
+        threads = [threading.Thread(target=client, args=(c,),
+                                    name=f"fleet-client-{c}", daemon=True)
+                   for c in range(n)]
+        for t in threads:
+            t.start()
+        return threads
+
+    def join(threads, what: str) -> None:
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                fail(f"fleet: a {what} client thread hung")
+
+    try:
+        # -- calibration: the objective S from this card's own latencies
+        net = TorchNet(spec, seed=0, device=device)
+        cal = InferenceServer(net, ServeConfig(**lane_kw)).start()
+        cfe = BinaryFrontend(cal, port=0)
+        try:
+            for n in (1, 8, 64, 128):     # every bucket's first forward
+                futs = [cal.submit(payloads[i % len(payloads)])
+                        for i in range(n)]
+                for f in futs:
+                    f.result(timeout=600)
+            stats = {}
+            for kind, (n, per, secs) in (("burst", (clients, depth, 4.0)),
+                                         ("trickle", (1, 1, 3.0))):
+                cal.reset_counters()
+                stop, rows, errors = threading.Event(), [], []
+                ths = run_clients(n, per, cfe.address, stop, rows, errors)
+                time.sleep(secs)
+                stop.set()
+                join(ths, "calibration")
+                if errors:
+                    fail(f"fleet calibration ({kind}): {errors[:3]}")
+                cli_lat = sorted(r[2] for r in rows)
+                q = (lambda xs, p: xs[min(len(xs) - 1, int(p * len(xs)))])
+                stats[kind] = {"lane_p50": cal.latency.quantile(0.5),
+                               "lane_p99": cal.latency.quantile(0.99),
+                               "client_p50": q(cli_lat, 0.5),
+                               "client_p99": q(cli_lat, 0.99),
+                               "n": len(rows)}
+        finally:
+            cfe.stop()
+            cal.stop()
+        # S: the largest latency-histogram bound at most half the burst's
+        # server-side p50 (so a burst burns the budget) and at least 3x
+        # the trickle's client p99 (so a trickle reads cold, burn <
+        # burn_down 0.7, with room for a hop through the router to a
+        # replica). A bound: the report's error fraction is then exact.
+        lo = 3.0 * stats["trickle"]["client_p99"]
+        hi = stats["burst"]["lane_p50"] / 2.0
+        cands = [b for b in DEFAULT_BUCKETS if lo <= b <= hi]
+        print(f"fleet: calibration: burst of {clients} x {depth} in flight "
+              f"({stats['burst']['n']} replies): lane p50 "
+              f"{stats['burst']['lane_p50'] * 1e3:.2f} ms, client p50 / p99 "
+              f"{stats['burst']['client_p50'] * 1e3:.2f} / "
+              f"{stats['burst']['client_p99'] * 1e3:.2f} ms; trickle of 1 "
+              f"({stats['trickle']['n']} replies): lane p99 "
+              f"{stats['trickle']['lane_p99'] * 1e3:.2f} ms, client p99 "
+              f"{stats['trickle']['client_p99'] * 1e3:.2f} ms; candidate "
+              f"objectives {[b * 1e3 for b in cands]} ms [{card}]",
+              flush=True)
+        if not cands:
+            fail(f"fleet: no latency bound between 3 x the trickle's client "
+                 f"p99 ({lo * 1e3:.2f} ms) and half the burst's lane p50 "
+                 f"({hi * 1e3:.2f} ms)")
+        slo_s = cands[-1]
+        slo_ms = slo_s * 1e3
+        out["slo_ms"] = slo_ms
+        out["calibration"] = stats
+        print(f"fleet: S = {slo_ms:g} ms (p99 objective), availability "
+              f"0.999 [{card}]", flush=True)
+
+        # -- the fleet ------------------------------------------------------
+        src = TorchNet(spec, seed=0, device="cpu")
+        ckpt.save(ck, {"params": params_to_jax(src.net, src.params)},
+                  step=1)
+        del src
+        child_py = os.path.join(root, "child_python")
+        with open(os.path.join(root, "child.py"), "w") as f:
+            f.write(_FLEET_CHILD_SRC)
+        with open(child_py, "w") as f:
+            f.write(f"#!/bin/sh\nexec '{sys.executable}' "
+                    f"'{os.path.join(root, 'child.py')}' \"$@\"\n")
+        os.chmod(child_py, 0o755)
+
+        class Provider(SubprocessReplicaProvider):
+            """Stamps each grow's decision and bring-up times."""
+
+            def grow(self, model):
+                grows.append({"t_decide": time.time()})
+                h = super().grow(model)
+                grows[-1].update(t_up=time.time(), tag=h.meta["tag"],
+                                 url=h.url, hb=h.heartbeat_path,
+                                 pid=h.meta["proc"].pid)
+                return h
+
+        extra = ["--crop", str(crop), "--n-classes", "1000", "--buckets",
+                 ",".join(map(str, SERVE_BUCKETS)), "--max-wait-ms", "2",
+                 "--workdir", os.path.join(root, "children")]
+        if device == "cpu":
+            extra += ["--device", "cpu"]
+        provider = Provider({"caffenet": "caffenet"},
+                            workdir=os.path.join(root, "fleet"),
+                            max_batch=128, outputs=("prob",),
+                            heartbeat_every_s=0.5, spawn_timeout_s=300.0,
+                            extra_args=extra, python=child_py,
+                            checkpoint_dir=ck, poll_interval_s=0.5,
+                            poll_jitter=0.1, rollout_gate=gate)
+        router = ModelRouter(RouterConfig(
+            workers=2, status_port=0, history=True, history_dir=hist_dir,
+            history_interval_s=1.0, stale_after_s=3.0,
+            health_refresh_s=0.1))
+        _zero_counts()
+        # the objective is read from the router's routed latency (submit
+        # to the answer, from whichever replica answered): the lane's own
+        # histogram does not see the requests a grown replica serves
+        slo_spec = SloSpec("caffenet", latency_ms=slo_ms,
+                           availability=0.999,
+                           latency_metric=ROUTED_LATENCY)
+        lane = router.add_model("caffenet", net, cfg=ServeConfig(
+            **lane_kw, checkpoint_dir=ck, poll_interval_s=0.5,
+            rollout_gate=gate, slo_p99_ms=slo_ms, slo_availability=0.999,
+            slo_spec=slo_spec))
+        admission = PriorityAdmission()
+        router.attach_admission(admission)
+        # the wave gate reads the routed p99, which holds the canary's own
+        # install stall (the lane restores and vets a 244 MB step between
+        # batches while the burst queues behind it): its halt burn sits
+        # above that stall, or every rollout under load halts on itself
+        policy = FleetPolicy(up_ticks=2, down_ticks=4, min_window_n=16,
+                             rollout_wave_size=2, rollout_halt_burn=500.0,
+                             rollout_timeout_s=60.0)
+        fc = FleetController(router, provider=provider, cfg=FleetConfig(
+            interval_s=0.5, window_s=4.0, min_replicas=1, max_replicas=2,
+            up_cooldown_s=1.0, down_cooldown_s=1.0, drain_grace_s=2.0,
+            policy=policy), admission=admission)
+        router.start()
+        if lane.manager.step != 1:
+            fail(f"fleet: the lane did not install step 1 (step "
+                 f"{lane.manager.step})")
+        sample_ms: list = []
+        h_sample = router.history.sample_now
+
+        def timed_sample(now=None):
+            t0 = time.perf_counter()
+            try:
+                return h_sample(now)
+            finally:
+                sample_ms.append((time.perf_counter() - t0) * 1e3)
+        router.history.sample_now = timed_sample
+        fc.attach_alerter(router.alerter)
+        bfe = BinaryFrontend(router, port=0, tenants=admission)
+        fes.append(bfe)
+        fc.start()
+        host, sport = router.status_address
+        print(f"fleet: router with the CaffeNet lane (step 1, f32, buckets "
+              f"{list(SERVE_BUCKETS)}, S {slo_ms:g} ms, availability "
+              f"0.999), history every 1 s, the controller every 0.5 s "
+              f"(replicas 1..2, window 4 s, rollout halt burn 500); "
+              f"spkn://{bfe.address[0]}:{bfe.address[1]}, status "
+              f"http://{host}:{sport} [{card}]", flush=True)
+
+        def events(direction=None, reason=None):
+            return [a for a in list(fc.audit)
+                    if (direction is None or a["direction"] == direction)
+                    and (reason is None or a["reason"] == reason)]
+
+        routed = router.registry.counter("sparknet_serve_routed_total",
+                                         labels=("model", "replica"))
+        first_routed: dict = {}
+
+        def monitor():
+            """The wall time of each grown replica's first routed reply,
+            and the highest pressure the controller set."""
+            out["max_pressure"] = out["max_burn"] = 0.0
+            while not mon_stop.wait(0.05):
+                out["max_pressure"] = max(out["max_pressure"], fc.pressure)
+                st = fc._state.get("caffenet")
+                if st is not None:
+                    out["max_burn"] = max(out["max_burn"], st.burn)
+                for r in list(router.replicas.get("caffenet", [])):
+                    if r.lane is None and r.name not in first_routed and \
+                            (routed.value(model="caffenet", replica=r.name)
+                             or 0) > 0:
+                        first_routed[r.name] = time.time()
+        mon = threading.Thread(target=monitor, name="fleet-monitor",
+                               daemon=True)
+        mon.start()
+
+        # -- 1. burst: a page, pressure, a grow --------------------------
+        burst_rows, burst_err = [], []
+        stop_burst = threading.Event()
+        t_burst = time.time()
+        burst = run_clients(clients, depth, bfe.address, stop_burst,
+                            burst_rows, burst_err)
+        try:
+            fire_s = wait_for(lambda: "caffenet" in
+                              router.alerter.firing_pages(), "the page")
+            out["page_fire_s"] = time.time() - t_burst
+            wait_for(lambda: out.get("max_pressure", 0) >=
+                     fc.cfg.page_pressure, "the page pressure")
+            shed = None
+            try:
+                cli = BinaryClient(*bfe.address, timeout=60.0)
+                try:
+                    cli.infer(fixed, model="caffenet", deadline_s=60.0,
+                              priority="normal")
+                finally:
+                    cli.close()
+            except PriorityShedError as e:
+                shed = e
+            wait_for(lambda: events("up", "slo_burn"), "the grow", 300.0)
+            up = events("up", "slo_burn")[0]
+            child = grows[0]
+            wait_for(lambda: up["replica"] in first_routed,
+                     "the new replica's first routed reply", 60.0)
+            grow_to_reply = first_routed[up["replica"]] - child["t_decide"]
+            print(f"fleet: burst of {clients} clients x {depth} in flight: "
+                  f"page fired {out['page_fire_s']:.2f} s after it began "
+                  f"({fire_s:.2f} s of waiting); pressure "
+                  f"{out['max_pressure']:.2f} (page_pressure "
+                  f"{fc.cfg.page_pressure}); a normal-priority request "
+                  f"{'shed: ' + type(shed).__name__ if shed else 'ADMITTED'}"
+                  f"; grew {up['replica']} ({up['reason']}, replicas "
+                  f"{up['replicas']}); {grow_to_reply:.2f} s from the grow "
+                  f"decision to its first routed reply (spawn "
+                  f"{child['t_up'] - child['t_decide']:.2f} s) [{card}]",
+                  flush=True)
+            if shed is None:
+                fail("fleet: a normal-priority request was admitted under "
+                     "the page's pressure")
+            out["grow_to_first_reply_s"] = grow_to_reply
+            t_grown = first_routed[up["replica"]]
+            time.sleep(3.0)               # the grown fleet, under the burst
+
+            # -- 2. rollout of step 2, canary first ------------------------
+            src = TorchNet(spec, seed=1, device="cpu")
+            t_commit2 = time.time()
+            ckpt.save(ck, {"params": params_to_jax(src.net, src.params)},
+                      step=2)
+            del src
+            wait_for(lambda: any(e.get("step") == 2 for e in
+                                 events("rollout", "done")),
+                     "the step-2 rollout", 120.0)
+            ro = {e["reason"]: e for e in events("rollout")
+                  if e.get("step") == 2}
+            t_fleetwide = ro["done"]["t"]
+            g = read_gate(gate)
+            hb = read_heartbeat(child["hb"]) or {}
+            child_step = ((hb.get("models") or {}).get("caffenet")
+                          or {}).get("model_step")
+            if lane.manager.step != 2 or child_step != 2 or \
+                    g.get("all") != 2 or ro["canary"]["replica"] != "local" \
+                    or child["tag"] not in ro["wave"]["replicas"]:
+                fail(f"fleet: rollout of step 2: lane {lane.manager.step}, "
+                     f"child {child_step}, gate {g}, events {ro}")
+            if set(g) != {"v", "state", "wave", "approved", "denied",
+                          "all"} or g["v"] != 1:
+                fail(f"fleet: the gate {g} lacks the JAX write_gate schema")
+            out["rollout_s"] = t_fleetwide - ro["canary"]["t"]
+            print(f"fleet: step 2 saved under the burst: canary "
+                  f"(the lane) at +{ro['canary']['t'] - t_commit2:.2f} s, "
+                  f"wave 1 {ro['wave']['replicas']} at "
+                  f"+{ro['wave']['t'] - t_commit2:.2f} s, fleet-wide at "
+                  f"+{t_fleetwide - t_commit2:.2f} s: canary -> fleet-wide "
+                  f"{out['rollout_s']:.2f} s (the highest SLO burn so far "
+                  f"{out['max_burn']:.2f}); gate {g} [{card}]",
+                  flush=True)
+
+            # -- 3. a corrupt step 3: the canary rejects it ----------------
+            stage = os.path.join(root, "stage")
+            src = TorchNet(spec, seed=3, device="cpu")
+            path = ckpt.save(stage, {"params": params_to_jax(
+                src.net, src.params)}, step=3)
+            del src
+            npz = os.path.join(path, "state.npz")
+            with open(npz, "rb") as f:
+                raw = bytearray(f.read())
+            raw[len(raw) // 2] ^= 0x01
+            with open(npz, "wb") as f:
+                f.write(bytes(raw))
+            os.rename(path, os.path.join(ck, "step-3"))
+            wait_for(lambda: any(e.get("step") == 3 for e in
+                                 events("rollout", "halt")),
+                     "the step-3 halt", 120.0)
+            halt = [e for e in events("rollout", "halt")
+                    if e.get("step") == 3][0]
+            g = read_gate(gate)
+            if g.get("denied") != [3] or g.get("all") != 2 or \
+                    lane.manager.step != 2 or \
+                    lane.manager.swap_failures < 1:
+                fail(f"fleet: the corrupt step 3: gate {g}, lane step "
+                     f"{lane.manager.step}, rejections "
+                     f"{lane.manager.swap_failures}, halt {halt}")
+            print(f"fleet: corrupt step 3 (one flipped byte): the canary "
+                  f"rejected it, the rollout halted ({halt['why']}); gate "
+                  f"denied {g['denied']}, all {g['all']} [{card}]",
+                  flush=True)
+
+            # -- 4. kill -9 the child: replaced and named ------------------
+            os.kill(child["pid"], signal.SIGKILL)
+            t_kill = time.time()
+            wait_for(lambda: events("up", "replace"), "the replacement",
+                     300.0)
+            dead = events("down", "dead")
+            if not dead or dead[0]["replica"] != up["replica"] or \
+                    not dead[0].get("proc_dead"):
+                fail(f"fleet: the dead replica was not named: {dead}")
+            repl = grows[-1]
+            wait_for(lambda: events("up", "replace")[0]["replica"] in
+                     first_routed, "the replacement's first reply", 60.0)
+            print(f"fleet: killed {child['tag']} (SIGKILL); the controller "
+                  f"named {dead[0]['replica']} dead "
+                  f"{dead[0]['t'] - t_kill:.2f} s later and grew "
+                  f"{repl['tag']} (replace, spawn "
+                  f"{repl['t_up'] - repl['t_decide']:.2f} s) [{card}]",
+                  flush=True)
+        finally:
+            stop_burst.set()
+            join(burst, "burst")
+        t_burst_end = time.time()
+        if burst_err:
+            fail(f"fleet: the burst: {burst_err[:3]}")
+
+        # a fixed request to the replacement alone, over its own wire
+        rhost, rport = repl["url"][len("spkn://"):].rsplit(":", 1)
+        cli = BinaryClient(rhost, int(rport), timeout=120.0, use_shm=False)
+        try:
+            child_prob = cli.infer(fixed, model="caffenet",
+                                   deadline_s=60.0)["prob"]
+            child_fixed_step = cli.last_step
+        finally:
+            cli.close()
+
+        # -- 5. trickle: the page resolves, the fleet shrinks -------------
+        tr_rows, tr_err = [], []
+        stop_tr = threading.Event()
+        trickle = run_clients(1, 1, bfe.address, stop_tr, tr_rows, tr_err)
+        try:
+            wait_for(lambda: "caffenet" not in
+                     router.alerter.firing_pages(), "the page's resolve",
+                     120.0)
+            out["page_resolve_s"] = time.time() - t_burst_end
+            wait_for(lambda: events("down", "quiet"), "the shrink", 120.0)
+            wait_for(lambda: len(router.replicas["caffenet"]) == 1 and
+                     not fc._retiring, "the retire", 60.0)
+            n_during = len(tr_rows)
+            time.sleep(1.0)
+        finally:
+            stop_tr.set()
+            join(trickle, "trickle")
+        if tr_err:
+            fail(f"fleet: the trickle dropped requests: {tr_err[:3]}")
+        down = events("down", "quiet")[0]
+        print(f"fleet: trickle of 1 client: the page resolved "
+              f"{out['page_resolve_s']:.2f} s after the burst ended; "
+              f"shrank {down['replica']} through a drain (retired after "
+              f"{fc.cfg.drain_grace_s} s), {len(tr_rows)} trickle requests "
+              f"answered ({n_during} before the retire), none dropped "
+              f"[{card}]", flush=True)
+
+        # the JAX package's keys on the three routes
+        def get(path):
+            with urllib.request.urlopen(f"http://{host}:{sport}{path}",
+                                        timeout=30) as r:
+                return json.loads(r.read())
+        fst, sst = get("/fleet/status"), get("/slo/status")
+        tsi = get("/timeseries")
+        ts = get("/timeseries?name=sparknet_serve_request_latency_seconds"
+                 "&window=60&model=caffenet")
+        for name, body, keys in (
+                ("/fleet/status", fst, JAX_FLEET_STATUS_KEYS),
+                ("/slo/status", sst, JAX_SLO_STATUS_KEYS),
+                ("/timeseries", tsi, JAX_TIMESERIES_INDEX_KEYS),
+                ("/timeseries?name=...", ts, JAX_TIMESERIES_KEYS)):
+            if set(body) != keys:
+                fail(f"fleet: {name} keys {sorted(body)} (want the JAX "
+                     f"package's {sorted(keys)})")
+        if fst["models"]["caffenet"]["replicas"] != 1 or \
+                fst["rollout"]["caffenet"]["denied"] != [3]:
+            fail(f"fleet: /fleet/status {fst['models']} {fst['rollout']}")
+        fired = [a for a in sst["audit"] if a["severity"] == "page"]
+        if {a["edge"] for a in fired} != {"firing", "resolved"}:
+            fail(f"fleet: the page's edges on /slo/status: {fired}")
+        print(f"fleet: /fleet/status, /slo/status and /timeseries answer "
+              f"with the JAX package's keys; {fst['scale_events']} audited "
+              f"events, {sst['alerts_fired_total']} alert edges fired; "
+              f"history samples {len(sample_ms)}, "
+              f"{statistics.median(sample_ms):.3f} ms median, "
+              f"{max(sample_ms):.3f} ms max [{card}]", flush=True)
+        out["history_sample_ms"] = statistics.median(sample_ms)
+
+        # every reply from step 1 or 2, never 3; each request answered
+        # once; every request sent after step 2 went fleet-wide from step 2
+        rows = burst_rows + tr_rows
+        steps = {r[3] for r in rows}
+        late = {r[3] for r in rows if r[0] >= t_fleetwide}
+        if not steps <= {1, 2} or late != {2} or child_fixed_step != 2:
+            fail(f"fleet: reply steps {steps}, after step 2 went "
+                 f"fleet-wide {late}, the child's fixed request "
+                 f"{child_fixed_step}")
+        hist_routed = sum(routed.value(model="caffenet", replica=r)
+                          or 0 for r in set(
+                              ["local:caffenet"] + list(first_routed)))
+        print(f"fleet: {len(rows)} CaffeNet replies to the clients "
+              f"(steps {sorted(steps)}; from step 2 only after "
+              f"+{t_fleetwide - t_burst:.2f} s), {hist_routed:.0f} routed "
+              f"legs [{card}]", flush=True)
+        if hist_routed < len(rows):
+            fail(f"fleet: {hist_routed} routed legs for {len(rows)} replies")
+
+        def window_stats(r0, r1):
+            sel = [r for r in burst_rows if r0 <= r[1] < r1]
+            lat = [r[2] for r in sel]
+            return len(sel) / max(r1 - r0, 1e-9), lat
+        img_b, lat_b = window_stats(t_burst, t_grown)
+        img_a, lat_a = window_stats(t_grown, t_commit2)
+        print(f"fleet: the burst before the grow {img_b:.1f} img/s, client "
+              f"{_quantiles_ms(lat_b)}; after {img_a:.1f} img/s, "
+              f"{_quantiles_ms(lat_a)} [{card}]", flush=True)
+        out.update(img_s_before=img_b, img_s_after=img_a)
+    finally:
+        mon_stop.set()
+        if fc is not None:
+            fc.stop()         # drains and retires what it still owns
+        for fe in fes:
+            fe.stop()
+        if router is not None:
+            router.stop()
+        if provider is not None:
+            provider.stop()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # the in-process counts first; then the lane's direct forward
+        launches, bf16 = lrn_fwd.launches, lrn_fwd.bf16_launches
+        local_forwards = len(lane.batch_log) + lane.manager.forwards
+        one = zeros_batch(net, 1)
+        one["data"][0] = fixed["data"]
+        direct = net.forward(one, ["prob"])["prob"][0]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    err = float(np.abs(np.asarray(child_prob) - direct).max())
+    if err > 1e-6:
+        fail(f"fleet: the replacement's prob for the fixed request is "
+             f"{err:.3e} from the lane's direct bucket-1 forward (want "
+             f"<= 1e-6: the same step, the same card)")
+
+    # the SLO report from the shards, against the clients' own count
+    rep = subprocess.run(
+        [sys.executable, "-m", "sparknet_tpu_torch.obs.slo", hist_dir,
+         "--json", "--window", "1", "--model", "caffenet", "--latency-ms",
+         f"{slo_ms:g}", "--availability", "0.999", "--latency-metric",
+         ROUTED_LATENCY],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if rep.returncode != 0:
+        fail(f"fleet: the SLO report exited {rep.returncode}: "
+             f"{rep.stderr[-2000:]}")
+    report = json.loads(rep.stdout)
+    lat_slo = report["models"]["caffenet"]["slo"]["latency"]
+    # the report's own windows (its `_windows` over the shards' slots),
+    # each classified from the shards and from the clients' replies in the
+    # same slots; a window that missed on one side must have a missed
+    # window on the other within one slot
+    fams, slots = read_history_shards(hist_dir)
+    budget = slo_spec.budget("latency")
+    le = fams[ROUTED_LATENCY]["le"]
+    wins = []
+    for w0, w1, group in slo_mod._windows(slots,
+                                          report["report_window_s"]):
+        err, n = slo_mod._slot_err_frac(group, slo_spec, "latency", le)
+        if n == 0:
+            continue
+        lat = [r[2] for r in burst_rows + tr_rows
+               if group[0].t0 <= r[1] < group[-1].t1]
+        over = sum(x > slo_s for x in lat)
+        wins.append((err > budget, None if not lat else
+                     over / len(lat) > budget,
+                     (round(w0 - t_burst, 2), n, round(err, 4), len(lat),
+                      over)))
+    att_r = sum(not a for a, _, _ in wins) / len(wins)
+    seen = [c for _, c, _ in wins if c is not None]
+    att_c = sum(not c for c in seen) / len(seen)
+
+    def near(i, side):
+        return any(0 <= j < len(wins) and wins[j][side]
+                   for j in (i - 1, i, i + 1))
+    apart = [i for i, (a, c, _) in enumerate(wins)
+             if (a and not near(i, 1)) or (c and not near(i, 0))]
+    print(f"fleet: SLO report ({report['span']['slots']} slots, "
+          f"{lat_slo['windows']} windows of {report['report_window_s']:g} s "
+          f"with traffic): latency attainment {lat_slo['attainment']:.4f}, "
+          f"{sum(a for a, _, _ in wins)} windows missed p99 <= {slo_ms:g} ms, "
+          f"budget consumed {lat_slo['budget_consumed']:.4f}; the clients' "
+          f"own count of replies over S: {sum(c for c in seen)} of "
+          f"{len(seen)} windows missed, attainment {att_c:.4f}; windows "
+          f"apart by more than one slot: {apart} [{card}]", flush=True)
+    if lat_slo["windows"] != len(wins) or \
+            abs(lat_slo["attainment"] - round(att_r, 6)) > 1e-6:
+        fail(f"fleet: the report's attainment {lat_slo['attainment']} over "
+             f"{lat_slo['windows']} windows, its windows re-read "
+             f"{att_r} over {len(wins)}")
+    if apart:
+        fail(f"fleet: the report and the clients' count disagree beyond "
+             f"one history slot in windows {apart}: " + "; ".join(
+                 f"{i}: {wins[i]}" for i in range(
+                     max(0, min(apart) - 2), min(len(wins),
+                                                 max(apart) + 3))))
+    out["attainment"] = {"report": lat_slo["attainment"], "clients": att_c}
+
+    # kernels: 2 lrn_fwd launches per CaffeNet forward, every process
+    kids = []
+    for g in grows:
+        path = g["hb"] + ".counts.json"
+        try:
+            with open(path) as f:
+                kids.append(dict(json.load(f), tag=g["tag"]))
+        except OSError:
+            kids.append({"tag": g["tag"], "lrn_fwd": 0, "bf16": 0,
+                         "forwards": 0})
+    shutil.rmtree(root, ignore_errors=True)
+    if device == "cuda":
+        if launches != 2 * local_forwards or bf16 != 0:
+            fail(f"fleet: lrn_fwd launched {launches} times ({bf16} bf16) "
+                 f"over {local_forwards} forwards here (want 2 per "
+                 f"forward, f32)")
+        for k in kids:
+            if k["lrn_fwd"] != 2 * k["forwards"] or k["bf16"] != 0 or \
+                    k["forwards"] < 1:
+                fail(f"fleet: replica {k['tag']}'s lrn_fwd {k} (want 2 per "
+                     f"forward, f32)")
+    print(f"fleet: lrn_fwd launches {launches} = 2 x {local_forwards} "
+          f"forwards here; " + "; ".join(
+              f"{k['tag']} {k['lrn_fwd']} = 2 x {k['forwards']}"
+              for k in kids)
+          + f"; the replacement's fixed request within {err:.3e} of the "
+          f"lane's direct forward; phase {time.perf_counter() - t_phase:.1f}"
+          f" s [{card}]", flush=True)
+    out["launches"] = {"local": launches,
+                       **{k["tag"]: k["lrn_fwd"] for k in kids}}
+    out["forwards"] = {"local": local_forwards,
+                       **{k["tag"]: k["forwards"] for k in kids}}
+    return out
+
+
 def profile_step(net, params, batch, solver_cfg, card: str,
                  top: int = 14) -> None:
     """One training step (forward, autograd, SGD update) at the main
@@ -3905,6 +4652,7 @@ def main() -> None:
     http = phase_serve_http(card, serve["steady_img_s"])
     sharded = phase_sharded(card)
     routed = phase_router(card, serve["steady_img_s"], http["http_img_s"])
+    fleet = phase_fleet(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -3946,6 +4694,8 @@ def main() -> None:
          "serve_http_phase_forwards": http["forwards"],
          "router_phase_launches": routed["launches"],
          "router_phase_forwards": routed["forwards"],
+         "fleet_phase_launches": fleet["launches"],
+         "fleet_phase_forwards": fleet["forwards"],
          "serve": {k: v for k, v in agg.items() if k.endswith("_ms")
                    or k == "ms"},
          "serve_timed_at": "norm1 + norm2, bucket 128, float32",

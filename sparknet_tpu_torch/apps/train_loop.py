@@ -144,7 +144,13 @@ Not ported yet, and what the loop does with each:
     (ROADMAP A11);
   - levers that do not change the numbers are accepted and logged as not
     yet ported: `fused_boundary` (an eager round already averages right
-    after its last step), `compile_cache_dir`, `history`.
+    after its last step), `compile_cache_dir`.
+
+`history` runs the SLO ledger's metrics-history sampler over the run's
+registry on each machine's local rank 0 (the process that serves the
+machine's /metrics, the JAX loop's per-host process): `/timeseries` on
+the status server, and JSONL shards in `history_dir` for
+`python -m sparknet_tpu_torch.obs.slo` (`obs/history.py`).
 """
 from __future__ import annotations
 
@@ -183,7 +189,7 @@ from ..utils.logger import Logger, default_logger
 from ..utils.metrics import PhaseTimers, ThroughputMeter
 from ..utils.profiling import maybe_trace
 
-_NOT_PORTED_LEVERS = ("fused_boundary", "compile_cache_dir", "history")
+_NOT_PORTED_LEVERS = ("fused_boundary", "compile_cache_dir")
 
 #: retried rounds sample a disjoint deterministic data window: round R on
 #: rollback generation g draws as logical round R + g * _RETRY_DATA_OFFSET
@@ -534,6 +540,19 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             log.log(f"train status server at http://"
                     f"{status_srv.address[0]}:{status_srv.address[1]}"
                     f"/metrics")
+    # the SLO ledger's history sampler: the training process gets the
+    # same /timeseries surface serve and router processes get, plus JSONL
+    # shards for the SLO report
+    history = None
+    if cfg.history and registry is not None and local_rank == 0:
+        from ..obs.history import HistoryConfig, MetricsHistory
+        history = MetricsHistory(
+            registry,
+            HistoryConfig(sample_interval_s=cfg.history_interval_s,
+                          persist_dir=cfg.history_dir),
+            logger=log).start()
+        if status_srv is not None:
+            history.attach_http(status_srv)
     if cfg.pod_port is not None and cfg.pod_dir and rank == 0:
         try:
             # one staleness rule: the aggregator's down verdicts use the
@@ -1051,6 +1070,8 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                             f"abort: {e}")
         finally:
             # the ports unbind even when the writer's failure re-raises
+            if history is not None:
+                history.stop()
             if status_srv is not None:
                 status_srv.stop()
             if pod_srv is not None:

@@ -1,10 +1,14 @@
-"""Serving: dynamic batching, bucket padding, checkpoint hot reload, int8
-weight-only serving, the multi-model router over a shared pool (remote
-replicas, hedging, coalesced formation), the HTTP and binary frame data
-planes (with the shared-memory transport) behind tenant admission, and
-the serve CLI.
+"""Serving: dynamic batching, bucket padding, checkpoint hot reload (under
+the fleet's rollout gate when one is set), int8 weight-only serving, the
+multi-model router over a shared pool (remote replicas, hedging,
+coalesced formation, the SLO ledger), the HTTP and binary frame data
+planes (with the shared-memory transport) behind tenant and priority
+admission, and the serve CLI (with `--autoscale`: the fleet control
+plane of `sparknet_tpu_torch.fleet`).
 
-Exports the names `sparknet_tpu.serve` exports for the ported modules."""
+Exports the names `sparknet_tpu.serve` exports; the fleet's and the SLO
+ledger's names live in `sparknet_tpu_torch.fleet` and
+`sparknet_tpu_torch.obs`, as in the JAX package."""
 from ..model.quant import QuantConfig
 from .admission import (PRIORITIES, PriorityAdmission, PriorityShedError,
                         TenantAdmission, TenantLimitError,

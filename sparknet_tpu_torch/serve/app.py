@@ -20,11 +20,21 @@ with `{model}` substituted), with `--hedge` (budget `--hedge-budget`) and
 transport for same-host clients unless `--no-shm`), behind one tenant and
 priority admission door when `--tenant-rate` is given.
 
+`--history` runs the SLO ledger (the metrics-history sampler, the
+`/timeseries` route, shards in `--history-dir`) and, with an objective
+(`--slo-p99-ms`, `--slo-availability`), the burn-rate alerter
+(`/slo/status`). `--autoscale` (with `--models`) runs the fleet control
+plane (`sparknet_tpu_torch.fleet`): SLO-burn admission pressure through
+a priority door, floored while the alerter pages; replicas grown and
+retired through `--fleet-provider` (`subprocess`: serve children of this
+CLI over spkn:// with this process's device and net flags; `pod`: the
+`tpu_pod_launch.sh` stub, `--pod-zone` and `--pod-accel-type`; `none`);
+the pool lever up to `--pool-max`; and staggered checkpoint adoption
+through `--rollout-gate` (a `{model}` template in `--models` mode).
+
 The flags of later slices keep the JAX package's names and stop with an
-error naming their ROADMAP item: the graph backend (`--graph`), the fleet
-(`--autoscale`, `--fleet-*`, `--pool-max`, `--rollout-gate`), the SLO
-history (`--history*`, `--slo-availability`) and the compile cache
-(`--compile-cache`).
+error naming their ROADMAP item: the graph backend (`--graph`) and the
+compile cache (`--compile-cache`).
 
 Examples:
     python -m sparknet_tpu_torch.serve.app --model caffenet --max-batch 128 \
@@ -38,6 +48,9 @@ Examples:
         --quant int8 --buckets-from run/serving_metrics_*.jsonl --demo 8
     python -m sparknet_tpu_torch.serve.app --model deploy.prototxt \
         --weights trained.caffemodel --device cpu --demo 8
+    python -m sparknet_tpu_torch.serve.app --models m=lenet --autoscale \
+        --fleet-provider none --slo-p99-ms 50 --history --history-dir H \
+        --device cpu --demo 4
 """
 from __future__ import annotations
 
@@ -155,22 +168,6 @@ def parse_weights_arg(spec: Optional[str]) -> dict:
 LATER_FLAGS = (
     ("graph", None, "the graph backend (backend/graph_net.py): "
                     "ROADMAP A12"),
-    ("autoscale", False, "the fleet controller (fleet/): ROADMAP A10b"),
-    ("fleet_min", None, "the fleet controller (fleet/): ROADMAP A10b"),
-    ("fleet_max", None, "the fleet controller (fleet/): ROADMAP A10b"),
-    ("fleet_interval", None, "the fleet controller (fleet/): "
-                             "ROADMAP A10b"),
-    ("fleet_window", None, "the fleet controller (fleet/): ROADMAP A10b"),
-    ("fleet_provider", None, "the fleet's replica provider (fleet/): "
-                             "ROADMAP A10b"),
-    ("pool_max", None, "the fleet's pool lever (fleet/): ROADMAP A10b"),
-    ("rollout_gate", None, "the fleet rollout gate (fleet/rollout.py): "
-                           "ROADMAP A10b"),
-    ("history", False, "the SLO history (obs/history.py): ROADMAP A10c"),
-    ("history_dir", None, "the SLO history (obs/history.py): "
-                          "ROADMAP A10c"),
-    ("slo_availability", None, "the SLO burn-rate alerter (obs/slo.py): "
-                               "ROADMAP A10c"),
     ("compile_cache", None, "a warm-up cache in place of the XLA compile "
                             "cache: ROADMAP A10d"),
 )
@@ -178,36 +175,84 @@ LATER_FLAGS = (
 
 def _add_later_flags(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's flags of later slices, parsed so that each can stop
-    with its ROADMAP item (defaults None/False = "not given")."""
+    with its ROADMAP item (defaults None = "not given")."""
     p.add_argument("--graph", default=None,
                    help="serialized graph model (not ported: ROADMAP A12)")
-    p.add_argument("--autoscale", action="store_true",
-                   help="the fleet control plane (not ported: ROADMAP "
-                   "A10b)")
-    p.add_argument("--fleet-min", type=int, default=None,
-                   help="fleet minimum (not ported: ROADMAP A10b)")
-    p.add_argument("--fleet-max", type=int, default=None,
-                   help="fleet maximum (not ported: ROADMAP A10b)")
-    p.add_argument("--fleet-interval", type=float, default=None,
-                   help="fleet cadence (not ported: ROADMAP A10b)")
-    p.add_argument("--fleet-window", type=float, default=None,
-                   help="fleet window (not ported: ROADMAP A10b)")
-    p.add_argument("--fleet-provider", default=None,
-                   help="fleet provider (not ported: ROADMAP A10b)")
-    p.add_argument("--pool-max", type=int, default=None,
-                   help="fleet pool lever (not ported: ROADMAP A10b)")
-    p.add_argument("--rollout-gate", default=None, metavar="PATH",
-                   help="fleet rollout gate (not ported: ROADMAP A10b)")
-    p.add_argument("--history", action="store_true",
-                   help="the SLO ledger (not ported: ROADMAP A10c)")
-    p.add_argument("--history-dir", default=None, metavar="DIR",
-                   help="SLO history shards (not ported: ROADMAP A10c)")
-    p.add_argument("--slo-availability", type=float, default=None,
-                   metavar="FRAC",
-                   help="availability objective (not ported: ROADMAP "
-                   "A10c)")
     p.add_argument("--compile-cache", default=None, metavar="DIR",
                    help="compile cache (not ported: ROADMAP A10d)")
+
+
+def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
+    """The SLO ledger's and the fleet control plane's flags (the JAX
+    CLI's names and defaults; `--fleet-provider pod` and its two flags
+    are the port's)."""
+    p.add_argument("--slo-availability", type=float, default=None,
+                   metavar="FRAC",
+                   help="availability objective (e.g. 0.999) evaluated "
+                   "by the burn-rate alerter (needs --history)")
+    p.add_argument("--history", action="store_true",
+                   help="run the SLO ledger: metrics-history sampler "
+                   "(multi-resolution rings, /timeseries route) and — "
+                   "when an objective is declared — the burn-rate "
+                   "alerter (/slo/status, fleet page escalation)")
+    p.add_argument("--history-dir", default=None, metavar="DIR",
+                   help="persist append-only history shards here "
+                   "(python -m sparknet_tpu_torch.obs.slo DIR builds "
+                   "retrospective reports)")
+    p.add_argument("--rollout-gate", default=None, metavar="PATH",
+                   help="obey the fleet rollout duty's ROLLOUT.json at "
+                   "this path (local or gs://|s3://): only adopt "
+                   "checkpoint steps approved for --replica-name. In "
+                   "--models mode: a {model} template. Missing gate = "
+                   "ungated polling")
+    p.add_argument("--autoscale", action="store_true",
+                   help="run the fleet control plane (sparknet_tpu_torch."
+                   "fleet): per-model SLO burn (windowed p99 vs "
+                   "--slo-p99-ms) + queue/shed pressure drive admission "
+                   "tightening (low priority sheds first), replica "
+                   "grow/retire through --fleet-provider, and shared-"
+                   "pool resizing. Requires --models")
+    p.add_argument("--fleet-min", type=int, default=1,
+                   help="min replicas per model for --autoscale "
+                   "(local lane included; default 1)")
+    p.add_argument("--fleet-max", type=int, default=4,
+                   help="max replicas per model for --autoscale "
+                   "(default 4)")
+    p.add_argument("--fleet-interval", type=float, default=1.0,
+                   help="control-loop cadence seconds (default 1.0)")
+    p.add_argument("--fleet-window", type=float, default=30.0,
+                   help="sliding window seconds for the SLO-burn p99 "
+                   "(default 30)")
+    p.add_argument("--fleet-provider", default="subprocess",
+                   choices=("subprocess", "pod", "none"),
+                   help="where grown replicas come from: 'subprocess' "
+                   "spawns this CLI's children over spkn:// on this "
+                   "host (same device and net flags); 'pod' assembles "
+                   "the scripts/tpu_pod_launch.sh protocol (--pod-zone, "
+                   "--pod-accel-type); 'none' keeps only the admission "
+                   "+ pool levers")
+    p.add_argument("--pod-zone", default=None,
+                   help="with --fleet-provider pod: the launcher's zone")
+    p.add_argument("--pod-accel-type", default=None,
+                   help="with --fleet-provider pod: the launcher's "
+                   "accelerator type")
+    p.add_argument("--pool-max", type=int, default=None,
+                   help="with --autoscale: let the controller grow the "
+                   "router's shared worker pool up to this many "
+                   "threads (default: --router-workers, i.e. lever off)")
+
+
+def _child_args(args) -> list:
+    """The net and device flags a subprocess-grown replica needs to
+    serve what this process's lanes serve."""
+    out = ["--max-wait-ms", str(args.max_wait_ms), "--seed",
+           str(args.seed)]
+    for flag, v in (("--device", args.device), ("--crop", args.crop),
+                    ("--n-classes", args.n_classes),
+                    ("--buckets", args.buckets)):
+        if v is not None:
+            out += [flag, str(v)]
+    return out
 
 
 def main(argv=None) -> None:
@@ -250,7 +295,9 @@ def main(argv=None) -> None:
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--slo-p99-ms", type=float, default=None,
-                   help="advisory p99 objective, stamped into /status")
+                   help="per-model p99 objective, stamped into /status; "
+                   "with --history it becomes a live latency SLO the "
+                   "burn-rate alerter pages on")
     p.add_argument("--buckets", default=None,
                    help="comma-separated batch buckets (default: powers "
                    "of 2 up to max-batch)")
@@ -342,6 +389,7 @@ def main(argv=None) -> None:
     p.add_argument("--demo", type=int, default=None, metavar="N",
                    help="self-drive N synthetic requests, print status "
                    "JSON, exit")
+    _add_fleet_flags(p)
     _add_later_flags(p)
     args = p.parse_args(argv)
 
@@ -355,6 +403,13 @@ def main(argv=None) -> None:
     if args.tenant_weights and not args.tenant_rate:
         p.error("--tenant-weights requires --tenant-rate (weights "
                 "scale the per-tenant budget)")
+    if args.autoscale and not args.models:
+        p.error("--autoscale requires --models (the fleet controller "
+                "acts on a ModelRouter)")
+    if args.autoscale and args.fleet_provider == "pod" and \
+            not (args.pod_zone and args.pod_accel_type):
+        p.error("--fleet-provider pod requires --pod-zone and "
+                "--pod-accel-type")
 
     log = default_logger(args.workdir, name="serving")
     buckets = (tuple(int(b) for b in args.buckets.split(","))
@@ -392,24 +447,28 @@ def main(argv=None) -> None:
         quant = QuantConfig(mode=args.quant, rtol=args.quant_tol,
                             atol=args.quant_tol)
 
+    outputs = tuple(args.outputs.split(",")) if args.outputs else None
+
     def lane_cfg(name: str, checkpoint_dir: Optional[str]) -> ServeConfig:
+        gate = (args.rollout_gate.replace("{model}", name)
+                if args.rollout_gate else None)
         return ServeConfig(
             model_name=name, max_batch=args.max_batch,
             max_wait_ms=args.max_wait_ms, buckets=lane_buckets(name),
             slo_p99_ms=args.slo_p99_ms,
-            outputs=tuple(args.outputs.split(",")) if args.outputs
-            else None,
+            slo_availability=args.slo_availability, outputs=outputs,
             checkpoint_dir=checkpoint_dir,
             poll_interval_s=args.poll_interval,
             poll_jitter=args.poll_jitter,
-            replica_name=args.replica_name, canary=not args.no_canary,
-            quant=quant)
+            replica_name=args.replica_name, rollout_gate=gate,
+            canary=not args.no_canary, quant=quant)
 
     # ONE admission door shared by both data planes (a tenant's budget
-    # is a property of the tenant, not of the wire it arrived on); the
+    # is a property of the tenant, not of the wire it arrived on) AND by
+    # the fleet controller (its fast lever sets the pressure); the
     # priority-aware door also reads X-Priority / the frame's priority
     tenants = None
-    if args.tenant_rate:
+    if args.tenant_rate or args.autoscale:
         from .admission import PriorityAdmission
         tenants = PriorityAdmission(
             args.tenant_rate, args.tenant_burst,
@@ -436,8 +495,38 @@ def main(argv=None) -> None:
                                       journal=journal))
         return fes
 
+    def make_fleet(router, sources):
+        """The --autoscale control plane over the router."""
+        from ..fleet import (FleetConfig, FleetController,
+                             PodReplicaProvider, SubprocessReplicaProvider)
+        provider = None
+        if args.fleet_provider == "subprocess":
+            # grown children join the continuous-learning loop: same
+            # checkpoint store + rollout gate as the local lanes, each
+            # under its own provider tag (--replica-name)
+            provider = SubprocessReplicaProvider(
+                dict(sources), max_batch=args.max_batch,
+                outputs=outputs or ("prob",),
+                checkpoint_dir=args.checkpoint_dir,
+                poll_interval_s=args.poll_interval,
+                poll_jitter=args.poll_jitter,
+                rollout_gate=args.rollout_gate,
+                extra_args=_child_args(args))
+        elif args.fleet_provider == "pod":
+            provider = PodReplicaProvider(dict(sources), args.pod_zone,
+                                          args.pod_accel_type)
+        cfg = FleetConfig(interval_s=args.fleet_interval,
+                          window_s=args.fleet_window,
+                          min_replicas=args.fleet_min,
+                          max_replicas=args.fleet_max,
+                          pool_max=args.pool_max,
+                          slo_p99_ms=args.slo_p99_ms)
+        return FleetController(router, provider=provider, cfg=cfg,
+                               admission=tenants, logger=log)
+
     from ..obs import trace as obs_trace
 
+    fleet = None
     with contextlib.ExitStack() as stack:
         if args.trace_out:
             stack.enter_context(obs_trace.tracing(args.trace_out))
@@ -453,13 +542,16 @@ def main(argv=None) -> None:
                              heartbeat_every_s=args.heartbeat_every,
                              hedge=args.hedge,
                              hedge_budget=args.hedge_budget,
-                             coalesce=args.coalesce),
+                             coalesce=args.coalesce,
+                             history=args.history,
+                             history_dir=args.history_dir),
                 logger=log)
             if tenants is not None:
                 # hedging reads the admission door's pressure: a shedding
                 # door must not pay for duplicate requests
                 router.attach_admission(tenants)
-            for name, src in parse_models_arg(args.models):
+            sources = parse_models_arg(args.models)
+            for name, src in sources:
                 ck = (args.checkpoint_dir.format(model=name)
                       if args.checkpoint_dir else None)
                 router.add_model(
@@ -467,6 +559,8 @@ def main(argv=None) -> None:
                                     args.n_classes, args.crop, args.seed,
                                     args.device),
                     cfg=lane_cfg(name, ck))
+            fleet = make_fleet(router, sources) if args.autoscale \
+                else None
             backend = stack.enter_context(router)
             run_fn = (lambda: run_router_demo(router, args.demo))
         else:
@@ -477,13 +571,24 @@ def main(argv=None) -> None:
             cfg.status_port = args.status_port
             cfg.heartbeat_path = args.heartbeat
             cfg.heartbeat_every_s = args.heartbeat_every
+            cfg.history = args.history
+            cfg.history_dir = args.history_dir
             backend = stack.enter_context(InferenceServer(net, cfg,
                                                           logger=log))
             run_fn = (lambda: run_demo(backend, args.demo))
-        frontends = make_frontends(backend)
+        frontends = []
         try:
+            frontends = make_frontends(backend)
+            if fleet is not None:
+                if backend.alerter is not None:
+                    # the ledger's firing pages become the fleet's fast
+                    # admission-pressure input
+                    fleet.attach_alerter(backend.alerter)
+                fleet.start()
             _serve_until_done(backend.status, args, log, run_fn=run_fn)
         finally:
+            if fleet is not None:
+                fleet.stop()
             for fe in frontends:
                 fe.stop()
 

@@ -43,8 +43,15 @@ rollbacks = rejected/rolled-back swaps.
 `forwards` counts the canary and parity forwards the manager ran (of
 them, `reference_forwards` the f32 parity references), so a caller can
 tell them from traffic forwards; `install_ts` and `last_canary_s` time
-the last install. Not ported: the fleet
-rollout gate (`rollout_gate`, ROADMAP A10b).
+the last install.
+
+With `rollout_gate` (a ROLLOUT.json path, local or gs://|s3://, written
+by the fleet rollout duty, `fleet/rollout.py`) the poll adopts
+`approved[replica]` when present, else `all`, and never a step in
+`denied`; a gate that approves nothing for this replica holds the
+current weights, and a missing or unreadable gate degrades to ungated
+polling. The approved step may be older than the served one (a halted
+rollout swaps back down).
 """
 from __future__ import annotations
 
@@ -144,10 +151,6 @@ class ModelManager:
                  replica: str = "local", poll_jitter: float = 0.0,
                  rollout_gate: Optional[str] = None,
                  seed: Optional[int] = None):
-        if rollout_gate is not None:
-            raise NotImplementedError(
-                "the rollout gate (fleet/rollout.py) is not ported yet "
-                "(ROADMAP A10b, the fleet)")
         if quant is not None and not hasattr(net, "set_quant"):
             raise ServeModelError(
                 "quantized serving needs a TorchNet (exposes "
@@ -167,8 +170,13 @@ class ModelManager:
         self.heartbeat = heartbeat
         self.bad_step_retry_s = float(bad_step_retry_s)
         self.model = str(model)
-        #: fleet identity: the `replica` label on the freshness gauges
+        #: fleet identity: the key this replica looks itself up under in
+        #: the rollout gate and the `replica` label on the freshness gauges
         self.replica = str(replica)
+        #: optional ROLLOUT.json gate path (local or gs://|s3://): when
+        #: set, only adopt checkpoint steps the fleet rollout duty
+        #: approved for this replica; missing gate = ungated polling
+        self.rollout_gate = rollout_gate
         #: ± fraction of poll_interval_s each poll's NEXT deadline is
         #: jittered by: N replicas watching one bucket must not list it in
         #: lockstep on every commit. `seed` seeds the jitter (and the
@@ -295,11 +303,18 @@ class ModelManager:
             return False
         if latest is not None:
             self.latest_seen = latest
-        if latest is None or latest == self.step:
+        target = latest
+        if self.rollout_gate:
+            held, want = self._gate_target()
+            if held:
+                return False  # gated: no step approved for this replica
+            if want is not None:
+                target = want  # may be < self.step: rollback swap-down
+        if target is None or target == self.step:
             return False
-        if now < self._bad.get(latest, 0.0):
+        if now < self._bad.get(target, 0.0):
             return False  # known-bad step, still cooling down
-        return self._try_swap(latest)
+        return self._try_swap(target)
 
     def _schedule_next_poll(self, now: float) -> None:
         j = self.poll_jitter
@@ -318,6 +333,26 @@ class ModelManager:
                                                   self.poll_interval_s)
         self._log(f"serve: transient store error ({msg}); retrying with "
                   f"jittered backoff")
+
+    def _gate_target(self) -> tuple:
+        """(held, step) under the rollout gate: held=True means the gate
+        exists but approves nothing for this replica (hold the current
+        weights); step is the approved target otherwise. A missing or
+        unreadable gate degrades to ungated independent polling."""
+        from ..fleet.rollout import read_gate
+        gate = read_gate(self.rollout_gate)
+        if not gate:
+            return False, None
+        # per-replica approval wins; "all" is the completed-rollout (or
+        # post-halt fallback) step open to every replica, including ones
+        # grown after the rollout finished
+        want = gate.get("approved", {}).get(self.replica, gate.get("all"))
+        if want is None:
+            return True, None
+        want = int(want)
+        if want in set(int(d) for d in gate.get("denied", ())):
+            return True, None  # approval raced a deny; hold
+        return False, want
 
     # -- swap machinery ------------------------------------------------------
 

@@ -40,10 +40,13 @@ future the router returns (`_spkn_step`, `_spkn_queue_wait_s`, set before
 it resolves), whichever replica or leg answered, so the frontends put
 them on the wire as they do for a lone server.
 
-Not ported: the SLO history and its alerter (`RouterConfig.history`,
-`history_dir`: ROADMAP A10c) raise NotImplementedError; the fleet
-controller (ROADMAP A10b) is not ported, so `/fleet/status` answers
-{"enabled": false} unless a controller is attached.
+The SLO ledger (`history`): one metrics-history sampler over the shared
+registry (the `/timeseries` route, JSONL shards in `history_dir`) and
+one burn-rate alerter holding an `SloSpec` per lane that declares an
+objective (`/slo/status`, the `slo` block of `status()`, the fleet
+controller's page escalation). `/fleet/status` answers the bound
+`fleet.FleetController`'s view (`attach_fleet`), {"enabled": false}
+without one; `remove_replica` is the controller's retire step.
 """
 from __future__ import annotations
 
@@ -259,19 +262,21 @@ class RouterConfig:
     heartbeat_path: Optional[str] = None
     heartbeat_every_s: float = 10.0
     registry: Optional[MetricsRegistry] = None
-    # ROADMAP A10c: the SLO history over the shared registry; only the
-    # defaults are accepted
+    # SLO ledger over the SHARED registry: one history sampler for every
+    # lane (the /timeseries route), one burn-rate alerter holding a
+    # SloSpec per lane that declares an objective (slo_p99_ms /
+    # slo_availability on its ServeConfig) — /slo/status, the slo status
+    # section, and the fleet controller's page escalation
     history: bool = False
     history_dir: Optional[str] = None
+    history_interval_s: float = 1.0
 
     def __post_init__(self) -> None:
         if self.workers < 1:
             raise ValueError(f"workers must be >= 1 (got {self.workers})")
-        if self.history or self.history_dir is not None:
-            raise NotImplementedError(
-                "RouterConfig.history needs the SLO history "
-                "(obs/history.py) and its burn-rate alerter (obs/slo.py): "
-                "ROADMAP A10c, which is not ported yet")
+        if self.history_interval_s <= 0:
+            raise ValueError(f"history_interval_s must be > 0 "
+                             f"(got {self.history_interval_s})")
 
 
 class ModelRouter:
@@ -313,6 +318,9 @@ class ModelRouter:
         self._proxy: Optional[ThreadPoolExecutor] = None
         self._running = False
         self._http = None
+        # SLO ledger handles (started with the router when cfg.history)
+        self.history = None
+        self.alerter = None
         self.fleet = None  # FleetController attaches here (attach_fleet)
         # PriorityAdmission attaches here (attach_admission): its
         # .pressure gates hedging — no extra copies under overload
@@ -435,6 +443,25 @@ class ModelRouter:
         self._ensure_latency(model)
         return rep
 
+    def remove_replica(self, model: str, replica: str) -> Replica:
+        """Unregister a replica (by name or url) — the fleet
+        controller's retire step, after a drain has gated new routing
+        and the grace window let in-flight work finish. Raises
+        UnknownModelError when nothing matches."""
+        reps = self.replicas.get(model, [])
+        for i, r in enumerate(reps):
+            if r.name == replica or r.url == replica:
+                if r.lane is not None:
+                    raise ValueError(
+                        f"{model}/{r.name}: the local lane cannot be "
+                        f"removed (drain it instead)")
+                del reps[i]
+                if self.log is not None:
+                    self.log.log(f"serve: removed replica "
+                                 f"{model}/{r.name}")
+                return r
+        raise UnknownModelError(f"{model}/{replica}")
+
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "ModelRouter":
@@ -459,10 +486,45 @@ class ModelRouter:
                 host=self.cfg.status_host,
                 healthz=self._healthz, status=self.status,
                 routes={"/fleet/status": self._fleet_status})
+        if self.cfg.history:
+            self._start_history()
         return self
 
+    def _start_history(self) -> None:
+        """One SLO ledger for the whole router: the shared registry's
+        `model` labels keep lanes apart, so a single history + alerter
+        covers every lane (specs from each lane's declared objectives)."""
+        from ..obs.history import HistoryConfig, MetricsHistory
+        from ..obs.slo import BurnRateAlerter, SloSpec
+        self.history = MetricsHistory(
+            self.registry,
+            HistoryConfig(sample_interval_s=self.cfg.history_interval_s,
+                          persist_dir=self.cfg.history_dir),
+            logger=self.log)
+        specs = []
+        for name, lane in sorted(self.lanes.items()):
+            if lane.cfg.slo_spec is not None:
+                specs.append(lane.cfg.slo_spec)
+            elif lane.cfg.slo_p99_ms is not None or \
+                    lane.cfg.slo_availability is not None:
+                specs.append(SloSpec(
+                    model=name, latency_ms=lane.cfg.slo_p99_ms,
+                    availability=lane.cfg.slo_availability))
+        if specs:
+            self.alerter = BurnRateAlerter(self.history, specs,
+                                           logger=self.log).attach()
+            for name in (s.model for s in specs):
+                lane = self.lanes.get(name)
+                if lane is not None:
+                    lane.alerter = self.alerter  # model_row slo fields
+        if self._http is not None:
+            self.history.attach_http(self._http)
+            if self.alerter is not None:
+                self.alerter.attach_http(self._http)
+        self.history.start()
+
     def attach_fleet(self, controller) -> None:
-        """Bind a fleet controller (ROADMAP A10b, not ported):
+        """Bind a fleet controller (`fleet.FleetController`):
         /fleet/status starts answering with its view (the route itself is
         always registered and answers {"enabled": false} until then)."""
         self.fleet = controller
@@ -539,6 +601,10 @@ class ModelRouter:
         if self._proxy is not None:
             self._proxy.shutdown(wait=False)
             self._proxy = None
+        if self.history is not None:
+            self.history.stop()
+            self.history = None
+            self.alerter = None
         if self._http is not None:
             self._http.stop()
             self._http = None
@@ -1126,6 +1192,8 @@ class ModelRouter:
                         for m, c in self._hedge_counts.items()},
             "autoscale": self.fleet is not None,
         }
+        if self.alerter is not None:
+            out["slo"] = self.alerter.summary()
         rt = reqtrace.active()
         if rt is not None:
             ex = rt.exemplars()

@@ -39,12 +39,19 @@ Requests are dicts of PER-EXAMPLE arrays (no batch dim), NHWC for images.
 Missing net inputs are zero-filled (zoo nets carry label-consuming
 loss/accuracy heads; an inference client has no labels).
 
-Not ported (each raises NotImplementedError when set): the SLO history
-and its objectives (`history`, `history_dir`, `slo_availability`,
-`slo_spec`: ROADMAP A10c), the fleet rollout gate (`rollout_gate`: A10b)
-and the persistent compile cache (`compile_cache_dir`: A10d). Raw-pixel
-preprocessing at the door (the JAX server's `preprocessor`) is not ported
-either: requests carry the net's own input schema.
+With `history`, a lone server runs its own SLO ledger, as the JAX server
+does: a metrics-history sampler over its registry (`obs/history.py`: the
+`/timeseries` route, JSONL shards in `history_dir`) and, when an
+objective is declared (`slo_p99_ms`, `slo_availability` or a full
+`slo_spec`), a burn-rate alerter (`obs/slo.py`: `/slo/status`, the `slo`
+block of `status()`). `rollout_gate` makes the manager adopt only the
+steps the fleet rollout duty approved for `replica_name`
+(`fleet/rollout.py`).
+
+Not ported: the persistent compile cache (`compile_cache_dir` raises
+NotImplementedError when set: ROADMAP A10d), and raw-pixel preprocessing
+at the door (the JAX server's `preprocessor`): requests carry the net's
+own input schema.
 """
 from __future__ import annotations
 
@@ -160,14 +167,6 @@ def default_buckets(max_batch: int) -> Tuple[int, ...]:
 #: ServeConfig fields of later slices: (field, value that means "off",
 #: what it needs)
 _NOT_PORTED = (
-    ("history", False, "the SLO history (obs/history.py): ROADMAP A10c"),
-    ("history_dir", None, "the SLO history (obs/history.py): ROADMAP A10c"),
-    ("slo_availability", None,
-     "the SLO burn-rate alerter (obs/slo.py): ROADMAP A10c"),
-    ("slo_spec", None,
-     "the SLO burn-rate alerter (obs/slo.py): ROADMAP A10c"),
-    ("rollout_gate", None,
-     "the fleet rollout gate (fleet/rollout.py): ROADMAP A10b"),
     ("compile_cache_dir", None,
      "a warm-up cache in place of the XLA compile cache: ROADMAP A10d"),
 )
@@ -195,7 +194,8 @@ class ServeConfig:
     quant: Optional[Any] = None
     # ROADMAP A10d: a warm-up cache; only None is accepted
     compile_cache_dir: Optional[str] = None
-    # per-model latency objective (ms), advisory: stamped into /status
+    # per-model latency objective (ms): stamped into /status; with
+    # history it is the latency objective the burn-rate alerter pages on
     slo_p99_ms: Optional[float] = None
     # response content: blob names to return (None -> every per-row blob
     # of the net's output; pass ("prob",) to skip the label heads)
@@ -208,16 +208,27 @@ class ServeConfig:
     canary: bool = True                 # nonfinite-canary gate on swaps
     # the `replica` label on the freshness gauges
     replica_name: str = "local"
-    # ROADMAP A10b: the fleet's rollout gate; only None is accepted
+    # rollout gate path (fleet/rollout.py ROLLOUT.json): when set, this
+    # replica only adopts checkpoint steps the fleet rollout duty
+    # approved for it; missing gate = ungated independent polling
     rollout_gate: Optional[str] = None
     # observability: status_port serves /metrics, /healthz and /status
     # (None = no HTTP; 0 = ephemeral); registry: share one registry across
     # co-located components (None = a fresh one)
     status_port: Optional[int] = None
     status_host: str = "127.0.0.1"
-    # ROADMAP A10c: the SLO history; only the defaults are accepted
+    # SLO ledger (obs/history.py + obs/slo.py). history=True runs the
+    # metrics-history sampler thread (multi-resolution rings, the
+    # /timeseries route) and — when an objective is declared — the
+    # burn-rate alerter (/slo/status, slo section in /status).
+    # history_dir persists the JSONL shards the SLO report reads (None =
+    # rings only, no disk).
     history: bool = False
     history_dir: Optional[str] = None
+    history_interval_s: float = 1.0
+    # availability objective (fraction of requests answered "ok", e.g.
+    # 0.999); pairs with slo_p99_ms (the latency objective) to form this
+    # lane's SloSpec. slo_spec overrides both with a full obs.slo.SloSpec
     slo_availability: Optional[float] = None
     slo_spec: Optional[Any] = None
     heartbeat_path: Optional[str] = None
@@ -245,6 +256,9 @@ class ServeConfig:
                     f"{self.max_batch}: a full batch would have no "
                     f"bucket")
             self.buckets = b
+        if self.history_interval_s <= 0:
+            raise ValueError(f"history_interval_s must be > 0 "
+                             f"(got {self.history_interval_s})")
         if self.slo_availability is not None \
                 and not 0.0 < self.slo_availability < 1.0:
             raise ValueError(f"slo_availability must be in (0, 1) "
@@ -309,7 +323,8 @@ class InferenceServer:
             quant=self.quant,
             parity_batch=(parity_batch(net, self.buckets[0])
                           if self.quant is not None else None),
-            replica=cfg.replica_name, poll_jitter=cfg.poll_jitter)
+            replica=cfg.replica_name, poll_jitter=cfg.poll_jitter,
+            rollout_gate=cfg.rollout_gate)
         # meters: worker-written, internally locked
         self.latency = LatencyStats(registry=self.registry,
                                     model=cfg.model_name)
@@ -341,6 +356,10 @@ class InferenceServer:
         self._http: Optional[StatusServer] = None
         self._running = False
         self._last_tick = 0.0
+        # SLO ledger handles (started with the server when cfg.history; a
+        # router sets `alerter` on its lanes from its shared ledger)
+        self.history = None
+        self.alerter = None
 
     # -- client API ----------------------------------------------------------
 
@@ -413,7 +432,34 @@ class InferenceServer:
             self._worker.start()
         if self.cfg.status_port is not None:
             self._start_http(self.cfg.status_port)
+        if self.cfg.history:
+            self._start_history()
         return self
+
+    def _start_history(self) -> None:
+        """The SLO ledger: history sampler (+ alerter when an objective
+        is declared), attached to the status server when one is up."""
+        from ..obs.history import HistoryConfig, MetricsHistory
+        from ..obs.slo import BurnRateAlerter, SloSpec
+        self.history = MetricsHistory(
+            self.registry,
+            HistoryConfig(sample_interval_s=self.cfg.history_interval_s,
+                          persist_dir=self.cfg.history_dir),
+            logger=self.log)
+        spec = self.cfg.slo_spec
+        if spec is None and (self.cfg.slo_p99_ms is not None
+                             or self.cfg.slo_availability is not None):
+            spec = SloSpec(model=self.model_name,
+                           latency_ms=self.cfg.slo_p99_ms,
+                           availability=self.cfg.slo_availability)
+        if spec is not None:
+            self.alerter = BurnRateAlerter(self.history, [spec],
+                                           logger=self.log).attach()
+        if self._http is not None:
+            self.history.attach_http(self._http)
+            if self.alerter is not None:
+                self.alerter.attach_http(self._http)
+        self.history.start()
 
     def stop(self, drain_s: float = 5.0) -> None:
         """Stop accepting work, serve what's already queued (bounded by
@@ -432,6 +478,10 @@ class InferenceServer:
         if self.log is not None and self.fill.batches and \
                 self.cfg.metrics_every_batches:
             self._log_metrics_row()
+        if self.history is not None:
+            self.history.stop()
+            self.history = None
+            self.alerter = None
         if self._http is not None:
             self._http.stop()
             self._http = None
@@ -485,6 +535,9 @@ class InferenceServer:
         }
         if self.cfg.slo_p99_ms is not None:
             out["slo_p99_ms"] = self.cfg.slo_p99_ms
+        if self.alerter is not None:
+            # the ledger's live slice: firing alerts + budget left
+            out["slo"] = self.alerter.summary()
         out.update(self.latency.summary())
         rt = reqtrace.active()
         if rt is not None:
@@ -586,6 +639,16 @@ class InferenceServer:
             worst = rt.worst(self.model_name)
             if worst is not None:
                 row["slow_request"] = worst
+        if self.alerter is not None:
+            s = self.alerter.summary()
+            # a router-shared alerter carries every lane's alerts: keep
+            # only THIS model's on its row
+            row["slo_firing"] = [
+                f for f in s["firing"]
+                if f.startswith(f"{self.model_name}:")]
+            br = s["budget_remaining"].get(self.model_name)
+            if br is not None:
+                row["slo_budget_remaining"] = round(br, 4)
         return row
 
     def fill_signal(self) -> Optional[float]:

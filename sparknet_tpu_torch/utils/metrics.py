@@ -172,6 +172,13 @@ class LatencyStats:
         if self._hist is not None:
             self._hist.observe(seconds, **self._labels)
 
+    def quantile(self, q: float) -> Optional[float]:
+        """Exact order statistic over the window (nearest-rank), or None
+        with no observations."""
+        with self._lock:
+            xs = sorted(self._obs)
+        return _rank(xs, q) if xs else None
+
     def windowed_quantile(self, q: float, window_s: float
                           ) -> Optional[float]:
         """Exact order statistic (SECONDS) over the observations of the
@@ -183,6 +190,20 @@ class LatencyStats:
             xs = sorted(v for v, t in zip(self._obs, self._obs_t)
                         if t >= cutoff)
         return _rank(xs, q) if xs else None
+
+    def windowed(self, window_s: float) -> Dict[str, Optional[float]]:
+        """p50/p99 (ms) + n over the observations of the last `window_s`
+        seconds: the fleet controller's SLO-burn input. An empty window
+        gives {"n": 0, "p50_ms": None, "p99_ms": None} (a quiet model
+        reads as not burning, never as burning on a stale tail)."""
+        cutoff = time.monotonic() - float(window_s)
+        with self._lock:
+            xs = sorted(v for v, t in zip(self._obs, self._obs_t)
+                        if t >= cutoff)
+        out: Dict[str, Optional[float]] = {"n": len(xs)}
+        for name, q in (("p50_ms", 0.50), ("p99_ms", 0.99)):
+            out[name] = round(_rank(xs, q) * 1e3, 3) if xs else None
+        return out
 
     def summary(self) -> Dict[str, Optional[float]]:
         # ONE consistent copy for all three quantiles: a scrape racing the
@@ -270,6 +291,15 @@ class FillMeter:
     def ratio(self) -> float:
         with self._lock:
             return self.real / self.padded if self.padded else 0.0
+
+    def recent_ratio(self, n: int = 16) -> Optional[float]:
+        """Fill over the last `n` formed batches, or None with no recent
+        batches: real rows over the padded bucket slots they ran in."""
+        with self._lock:
+            tail = list(self._recent)[-int(n):]
+        real = sum(r for r, _ in tail)
+        padded = sum(b for _, b in tail)
+        return real / padded if padded else None
 
     def recent_occupancy(self, capacity: int,
                          n: int = 16) -> Optional[float]:

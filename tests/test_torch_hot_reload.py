@@ -460,11 +460,3 @@ def test_the_same_seed_gives_the_same_jitter_schedule(stores):
             cls(n, checkpoint_dir=d, poll_jitter=1.0)
         errs.append(str(e.value))
     assert errs[0] == errs[1]
-
-
-def test_the_rollout_gate_waits_for_the_fleet(stores):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ModelManager(TorchNet(zoo.lenet(batch=4), device="cpu"),
-                     checkpoint_dir=stores["port"], rollout_gate="g.json")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ServeConfig(rollout_gate="g.json")

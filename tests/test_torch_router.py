@@ -802,10 +802,6 @@ def test_busy_router_still_runs_idle_lane_duties(pnets, tmp_path):
 
 
 def test_refusals_name_their_gap(pnets):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        RouterConfig(history=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        RouterConfig(history_dir="h")
     r = ModelRouter(RouterConfig())
     with pytest.raises(NotImplementedError, match="preprocess"):
         r.add_model("m", pnets["a"], preprocessor=object())

@@ -238,10 +238,7 @@ def test_flags_of_later_slices_stop_naming_their_roadmap_item(
     if unset is False:
         argv.append(flag)
     else:
-        argv += [flag, {"graph": "g.pb",
-                        "history_dir": "h", "rollout_gate": "g.json",
-                        "compile_cache": "c",
-                        "fleet_provider": "none"}.get(dest, "2")]
+        argv += [flag, {"graph": "g.pb", "compile_cache": "c"}[dest]]
     with pytest.raises(SystemExit) as e:
         app.main(argv)
     assert e.value.code == 2
@@ -250,10 +247,7 @@ def test_flags_of_later_slices_stop_naming_their_roadmap_item(
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("history", True, "A10c"), ("history_dir", "h", "A10c"),
-    ("slo_availability", 0.999, "A10c"), ("slo_spec", object(), "A10c"),
-    ("rollout_gate", "g.json", "A10b"), ("compile_cache_dir", "c",
-                                        "A10d")])
+    ("compile_cache_dir", "c", "A10d")])
 def test_config_fields_of_later_slices_raise_naming_their_item(field, value,
                                                               item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
