@@ -5,8 +5,9 @@ cached and streamed, from a directory and from a bucket, watched by its
 telemetry, through the loss of a worker, behind an HTTP port that
 hot-reloads a training step under traffic, with per-shard checkpoints, a
 host trace, the profiler and the relaunch supervisor, behind a router
-with a remote replica over the binary wire and shared memory, and as a
-fleet that grows, rolls out, heals and shrinks itself on its SLO?
+with a remote replica over the binary wire and shared memory, as a
+fleet that grows, rolls out, heals and shrinks itself on its SLO, and as
+a bulk-inference job over two replicas that share a warm-up cache?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -317,9 +318,35 @@ Phases, in order; any failure exits non-zero before the result line:
    routed reply, img/s and client p50 / p99 before and after the grow,
    the page's fire and resolve seconds, the rollout's canary to
    fleet-wide seconds and the history's sample ms.
-13. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phase
-   12's launches and forwards per process), then the result line
-   `{"ok": true, "device": {...}}` as the last line of standard output.
+13. Bulk inference and the warm-up cache: step 1 (the seed-0 weights) of
+   full-width CaffeNet (crop 227, 1000 classes, float32) in a checkpoint
+   directory; two replicas grown through `SubprocessReplicaProvider(
+   compile_cache_dir=<an empty directory>)` (the serve CLI with buckets
+   (1, 8, 64, 128) and `--binary-port`, each child counting its forwards,
+   lrn_fwd launches and nvcc builds): child A on the cold directory,
+   child B on the same directory once A is up. Checks: A ran nvcc once,
+   for lrn_fwd; B ran it zero times and recorded no `cache_hit="false"`
+   compile event. Then a seeded 512-row 227x227x3 input goes through
+   `python -m sparknet_tpu_torch.batch.driver` (fc7, 64-row units,
+   window 16, concurrency 2, tenant batch at priority low, paced): the
+   driver is SIGKILLed after 2 committed units, resumed in this process,
+   and child A is SIGKILLed while the resumed job has a unit on it.
+   Checks: the job is done with `units_skipped_resume` the units
+   committed before the kill; every row in exactly one part, parts and
+   manifest rows one for one; a retry of kind error, its unit committed
+   by child B; each row's fc7 within `BATCH_FC7_RTOL` (relative to the
+   largest |fc7|) of a direct bucket-128 forward here with the same
+   weights; lrn_fwd 2 launches per forward in each child, float32; the
+   `sparknet-metrics` batch view over the driver's JSONLs reads the unit
+   commits and the retry trail, and `python -m
+   sparknet_tpu_torch.obs.summary --selfcheck` exits 0 on the card with
+   every view. Prints each child's spawn-to-port seconds and compile
+   events, the rows/s of both runs, the largest fc7 difference and the
+   phase's seconds.
+14. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
+   12's and 13's launches and forwards per process), then the result
+   line `{"ok": true, "device": {...}}` as the last line of standard
+   output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
 `sparknet_tpu_torch` package is not beside this script.
@@ -3840,12 +3867,13 @@ def phase_router(card: str, phase3_img_s=None, phase9_img_s=None,
     return out
 
 
-#: the interpreter phase 12's grown replicas run: the provider spawns
-#: `<python> -m sparknet_tpu_torch.serve.app ...`, and this wrapper runs
-#: that module with its TorchNet forwards and lrn_fwd launches counted.
-#: The counts are rewritten to `<heartbeat>.counts.json` after every
-#: forward (a child killed with SIGKILL leaves its last complete count)
-#: and printed at exit; SIGTERM (the provider's retire) drains like Ctrl-C
+#: the interpreter the grown replicas of phases 12 and 13 run: the
+#: provider spawns `<python> -m sparknet_tpu_torch.serve.app ...`, and this
+#: wrapper runs that module with its TorchNet forwards, lrn_fwd launches
+#: and nvcc builds counted, beside its compile events. The counts are
+#: rewritten to `<heartbeat>.counts.json` after every forward (a child
+#: killed with SIGKILL leaves its last complete count) and printed at
+#: exit; SIGTERM (the provider's retire) drains like Ctrl-C
 _FLEET_CHILD_SRC = r"""
 import atexit, json, os, runpy, signal, sys
 assert sys.argv[1] == "-m", sys.argv
@@ -3853,13 +3881,22 @@ module, args = sys.argv[2], sys.argv[3:]
 out = args[args.index("--heartbeat") + 1] + ".counts.json"
 sys.argv = [module] + args
 from sparknet_tpu_torch.net_api import TorchNet
+from sparknet_tpu_torch.obs.device import compile_stats
+from sparknet_tpu_torch.ops import _build
 from sparknet_tpu_torch.ops.cuda_lrn import lrn_fwd
-forwards = [0]
-_forward = TorchNet.forward
+forwards, builds = [0], []
+_forward, _start = TorchNet.forward, _build._start
+
+def start(name):
+    r = _start(name)
+    if r[0] is not None:
+        builds.append(name)
+    return r
 
 def counts():
     return {"lrn_fwd": lrn_fwd.launches, "bf16": lrn_fwd.bf16_launches,
-            "forwards": forwards[0], "pid": os.getpid()}
+            "forwards": forwards[0], "builds": builds,
+            "compile_stats": compile_stats(), "pid": os.getpid()}
 
 def forward(self, *a, **kw):
     r = _forward(self, *a, **kw)
@@ -3872,6 +3909,7 @@ def forward(self, *a, **kw):
 def interrupt(*_):
     raise KeyboardInterrupt
 
+_build._start = start
 TorchNet.forward = forward
 signal.signal(signal.SIGTERM, interrupt)
 atexit.register(lambda: print(json.dumps(counts()), flush=True))
@@ -4545,6 +4583,365 @@ def phase_fleet(card: str, device: str = "cuda", crop: int = 227,
     return out
 
 
+#: phase 13's fc7 tolerance against the direct forward, relative to the
+#: largest |fc7|: the float32 policy turns TF32 off, so a row differs only
+#: by cuDNN's and cuBLAS's sum order in the bucket batch formation picked
+BATCH_FC7_RTOL = 1e-4
+
+
+def phase_batch(card: str, device: str = "cuda", crop: int = 227,
+                n_rows: int = 512, unit_rows: int = 64,
+                pace_s: float = 0.1) -> dict:
+    """Phase 13: bulk inference and the warm-up cache (module docstring);
+    returns the launch counts and forwards of both replicas. The
+    arguments let the phase be rehearsed on the CPU at a small crop
+    (counts then 0, and no kernel is built)."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from sparknet_tpu_torch import precision, zoo
+    from sparknet_tpu_torch.batch import (BatchConfig, BatchDriver,
+                                          load_manifest, store)
+    from sparknet_tpu_torch.batch import manifest as mf
+    from sparknet_tpu_torch.fleet import SubprocessReplicaProvider
+    from sparknet_tpu_torch.model.net import params_to_jax
+    from sparknet_tpu_torch.net_api import TorchNet
+    from sparknet_tpu_torch.serve.server import zeros_batch
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+
+    precision.set_policy("float32")
+    spec = zoo.caffenet(batch=128, crop=crop, n_classes=1000)
+    root = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    ck = os.path.join(root, "ck")
+    cache = os.path.join(root, "kernel-cache")   # empty: the cold start
+    out_dir = os.path.join(root, "out")
+    inp = os.path.join(root, "input.npz")
+    jsonl = [os.path.join(root, "driver-run1.jsonl"),
+             os.path.join(root, "driver-run2.jsonl")]
+    out: dict = {}
+    t_phase = time.perf_counter()
+    provider = driver_proc = None
+    handles: dict = {}
+
+    def child_counts(h) -> dict:
+        with open(h.heartbeat_path + ".counts.json") as f:
+            return json.load(f)
+
+    try:
+        src = TorchNet(spec, seed=0, device="cpu")
+        ckpt.save(ck, {"params": params_to_jax(src.net, src.params)},
+                  step=1)
+        del src
+        child_py = os.path.join(root, "child_python")
+        with open(os.path.join(root, "child.py"), "w") as f:
+            f.write(_FLEET_CHILD_SRC)
+        with open(child_py, "w") as f:
+            f.write(f"#!/bin/sh\nexec '{sys.executable}' "
+                    f"'{os.path.join(root, 'child.py')}' \"$@\"\n")
+        os.chmod(child_py, 0o755)
+        extra = ["--crop", str(crop), "--n-classes", "1000", "--buckets",
+                 ",".join(map(str, SERVE_BUCKETS)), "--max-wait-ms", "2",
+                 "--workdir", os.path.join(root, "children")]
+        if device == "cpu":
+            extra += ["--device", "cpu"]
+        provider = SubprocessReplicaProvider(
+            {"caffenet": "caffenet"}, workdir=os.path.join(root, "fleet"),
+            max_batch=128, outputs=("prob",), compile_cache_dir=cache,
+            heartbeat_every_s=0.5, spawn_timeout_s=300.0, extra_args=extra,
+            python=child_py, checkpoint_dir=ck, poll_interval_s=5.0)
+        # -- 1. two replicas: A on the cold cache, then B on the warm one
+        spawn_s = {}
+        for name in ("a", "b"):
+            t0 = time.perf_counter()
+            handles[name] = provider.grow("caffenet")
+            spawn_s[name] = time.perf_counter() - t0
+            cmd = handles[name].meta["proc"].args
+            if cmd[cmd.index("--compile-cache") + 1] != cache:
+                fail(f"batch: child {name} was not handed the warm-up "
+                     f"cache: {cmd}")
+        out["spawn_s"] = spawn_s
+        addrs = {k: h.url.split("://", 1)[1] for k, h in handles.items()}
+        cold = {k: child_counts(h) for k, h in handles.items()}
+        for k in ("a", "b"):
+            print(f"batch: child {k.upper()} (pid {cold[k]['pid']}) up at "
+                  f"spkn://{addrs[k]} {spawn_s[k]:.2f} s after its spawn "
+                  f"(PR 13's grown children: 10.6-10.8 s); nvcc builds "
+                  f"{cold[k]['builds']}; compile events "
+                  f"{cold[k]['compile_stats']} [{card}]", flush=True)
+        want_builds = ["lrn_fwd"] if device != "cpu" else []
+        if cold["a"]["builds"] != want_builds:
+            fail(f"batch: child A on the cold cache ran nvcc for "
+                 f"{cold['a']['builds']}, not {want_builds}")
+        if cold["b"]["builds"]:
+            fail(f"batch: child B on the warm cache ran nvcc for "
+                 f"{cold['b']['builds']}")
+        if device != "cpu" and not any(
+                n.startswith("lrn_fwd-") and n.endswith(".so")
+                for n in os.listdir(cache)):
+            fail(f"batch: no lrn_fwd library in the warm-up cache: "
+                 f"{os.listdir(cache)}")
+        sites = {w: s for w, s in cold["a"]["compile_stats"].items()
+                 if s["cache_misses"]}
+        print(f"batch: child A's build was recorded at "
+              f"{sites or 'no site'}: its first forward is the install "
+              f"canary (bucket 1, before the frontend opens), which no "
+              f"compile site wraps, so its bucket first forwards read "
+              f"cache_hit=true too [{card}]", flush=True)
+
+        # -- 2. the input and the job, killed mid-way ----------------------
+        rng = np.random.default_rng(13)
+        x = (50.0 * rng.standard_normal((n_rows, crop, crop, 3),
+                                        dtype=np.float32))
+        np.savez(inp, data=x)
+        n_units = len(mf.plan_units(n_rows, unit_rows))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = (os.path.dirname(os.path.abspath(__file__))
+                             + os.pathsep + env.get("PYTHONPATH", ""))
+        common = ["--input", inp, "--out", out_dir, "--replicas",
+                  f"{addrs['a']},{addrs['b']}", "--outputs", "fc7",
+                  "--unit-rows", str(unit_rows), "--window", "16",
+                  "--concurrency", "2", "--tenant", "batch", "--priority",
+                  "low", "--deadline-ms", "60000", "--timeout-s", "120",
+                  "--pace-s", str(pace_s)]
+        t1 = time.perf_counter()
+        driver_proc = subprocess.Popen(
+            [sys.executable, "-m", "sparknet_tpu_torch.batch.driver",
+             *common, "--jsonl", jsonl[0]], env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        t_start = None      # the driver writes its empty manifest, then starts
+        while True:
+            if driver_proc.poll() is not None:
+                fail(f"batch: the driver exited {driver_proc.returncode} "
+                     f"before the kill: {driver_proc.stderr.read()[-3000:]}")
+            m = load_manifest(out_dir) if os.path.exists(
+                os.path.join(out_dir, mf.MANIFEST_NAME)) else None
+            if m is not None and t_start is None:
+                t_start = time.perf_counter()
+            if m is not None and len(m["units"]) >= 2:
+                t_seen = time.perf_counter()
+                break
+            if time.perf_counter() - t1 > 300:
+                fail("batch: the driver committed no 2 units in 300 s")
+            time.sleep(0.02)
+        driver_proc.send_signal(signal.SIGKILL)
+        driver_proc.wait(timeout=60)
+        t_kill = time.perf_counter()
+        driver_proc.stderr.close()
+        driver_proc = None
+        partial = load_manifest(out_dir)
+        before = len(partial["units"])
+        if partial["done"] or not 0 < before < n_units:
+            fail(f"batch: the kill landed at {before} of {n_units} units")
+        rows_before = sum(u["rows"] for u in partial["units"].values())
+        run1_rows_s = rows_before / (t_seen - t_start)
+        print(f"batch: driver SIGKILLed {t_kill - t_start:.2f} s into its "
+              f"job ({t_start - t1:.2f} s from its spawn to its manifest) "
+              f"with {before} of {n_units} units committed ({rows_before} "
+              f"rows; {run1_rows_s:.1f} rows/s, paced {pace_s} s a unit) "
+              f"[{card}]", flush=True)
+
+        # -- 3. the resume in this process, child A killed under it -------
+        on_a = threading.Event()
+        a_port = int(addrs["a"].rsplit(":", 1)[1])
+
+        class Driver(BatchDriver):
+            """Signals when a unit is dispatched to child A."""
+
+            def _unit_rows_out(self, cli, data, lo, hi, trace=None):
+                if cli.addr[1] == a_port:
+                    on_a.set()
+                return super()._unit_rows_out(cli, data, lo, hi, trace)
+
+        cfg = BatchConfig(
+            input=inp, output=out_dir,
+            replicas=[addrs["a"], addrs["b"]], outputs=("fc7",),
+            unit_rows=unit_rows, window=16, concurrency=2, tenant="batch",
+            priority="low", deadline_s=60.0, request_timeout_s=120.0,
+            pace_s=pace_s, backoff_cap_s=0.2, jsonl_path=jsonl[1])
+        drv = Driver(cfg)
+        res: dict = {}
+        errs: list = []
+
+        def resume():
+            try:
+                res.update(drv.run())
+            except BaseException as e:  # reported below
+                errs.append(e)
+        th = threading.Thread(target=resume, name="batch-resume",
+                              daemon=True)
+        th.start()
+        if not on_a.wait(timeout=300):
+            fail("batch: the resumed job sent no unit to child A")
+        time.sleep(0.05)                 # its first rows are in flight
+        a_proc = handles["a"].meta["proc"]
+        a_proc.send_signal(signal.SIGKILL)
+        a_proc.wait(timeout=60)
+        th.join(timeout=600)
+        if th.is_alive():
+            fail("batch: the resumed job did not finish in 600 s")
+        if errs:
+            fail(f"batch: the resumed job raised {errs[0]!r}")
+        print(f"batch: resumed in process: {json.dumps(res)} [{card}]",
+              flush=True)
+        out["rows_per_s"] = {"run1": run1_rows_s,
+                             "resume": res["rows_per_s"]}
+
+        # -- 4. the checks -------------------------------------------------
+        if not res["done"] or res["units_skipped_resume"] != before:
+            fail(f"batch: done {res['done']}, units_skipped_resume "
+                 f"{res['units_skipped_resume']} (committed before the "
+                 f"kill: {before})")
+        m = load_manifest(out_dir)
+        plan = mf.plan_units(n_rows, unit_rows)
+        if sorted((u["start"], u["stop"]) for u in m["units"].values()) \
+                != sorted(plan):
+            fail(f"batch: the manifest's units are not the plan: "
+                 f"{m['units']}")
+        names = set(store.list_names(out_dir))
+        parts = {mf.part_name(u) for u in range(n_units)}
+        if names != parts | {mf.MANIFEST_NAME}:
+            fail(f"batch: parts and manifest rows differ: {sorted(names)}")
+        fc7 = np.zeros((n_rows, 4096), np.float32)
+        seen = np.zeros(n_rows, np.int64)
+        for uid_s, u in m["units"].items():
+            with np.load(os.path.join(out_dir, mf.part_name(int(uid_s)))) \
+                    as z:
+                if set(z.files) != {"fc7"} or \
+                        z["fc7"].shape != (u["rows"], 4096):
+                    fail(f"batch: part {uid_s} holds "
+                         f"{[(k, z[k].shape) for k in z.files]}")
+                fc7[u["start"]:u["stop"]] = z["fc7"]
+                seen[u["start"]:u["stop"]] += 1
+        if not (seen == 1).all():
+            fail(f"batch: rows not in exactly one part: "
+                 f"{np.flatnonzero(seen != 1)[:10]}")
+        rows2 = [json.loads(l) for l in open(jsonl[1])]
+        retries = [r for r in rows2 if r.get("event") == "batch_retry"]
+        errors = [r for r in retries if r["kind"] == "error"]
+        if not errors:
+            fail(f"batch: no retry of kind error after child A's SIGKILL: "
+                 f"{retries}")
+        retried = {int(r["unit"]) for r in errors}
+        for uid in retried:
+            u = m["units"][str(uid)]
+            if u["replica"] != addrs["b"] or u["attempts"] < 2:
+                fail(f"batch: unit {uid}, retried after child A's kill, "
+                     f"was committed by {u['replica']} in "
+                     f"{u['attempts']} attempts")
+        by_rep: dict = {}
+        for u in m["units"].values():
+            by_rep[u["replica"]] = by_rep.get(u["replica"], 0) + 1
+        print(f"batch: {n_rows} rows in {n_units} parts, each exactly "
+              f"once; units by replica {by_rep}; retries of kind error "
+              f"{len(errors)} (units {sorted(retried)}, each committed by "
+              f"child B), shed {len(retries) - len(errors)} [{card}]",
+              flush=True)
+        # the direct forward: bucket-128 buffers as the server fills them
+        ref_net = TorchNet(spec, seed=0, device=device)
+        ref = np.zeros_like(fc7)
+        for lo in range(0, n_rows, 128):
+            buf = zeros_batch(ref_net, 128)
+            hi = min(lo + 128, n_rows)
+            buf["data"][:hi - lo] = x[lo:hi]
+            ref[lo:hi] = ref_net.forward(buf, ["fc7"])["fc7"][:hi - lo]
+        err = float(np.abs(fc7 - ref).max())
+        scale = float(np.abs(ref).max())
+        out["fc7_max_abs_err"], out["fc7_scale"] = err, scale
+        print(f"batch: fc7 against a direct bucket-128 forward of each row "
+              f"here: max abs diff {err:.3e} of max |fc7| {scale:.3e} "
+              f"({err / max(scale, 1e-30):.3e} relative; tolerance "
+              f"{BATCH_FC7_RTOL:g} relative) [{card}]", flush=True)
+        if not np.isfinite(fc7).all() or not err <= BATCH_FC7_RTOL * scale:
+            fail(f"batch: fc7 differs from the direct forward by {err:.3e} "
+                 f"(tolerance {BATCH_FC7_RTOL * scale:.3e})")
+
+        # -- the replicas' counts and compile events -----------------------
+        provider.retire(handles["b"])
+        counts = {k: child_counts(h) for k, h in handles.items()}
+        for k, c in counts.items():
+            print(f"batch: child {k.upper()}: {c['forwards']} forwards, "
+                  f"lrn_fwd {c['lrn_fwd']} launches ({c['bf16']} bf16), "
+                  f"nvcc builds {c['builds']}, compile events "
+                  f"{c['compile_stats']} [{card}]", flush=True)
+            want = 2 * c["forwards"] if device != "cpu" else 0
+            if c["lrn_fwd"] != want or c["bf16"]:
+                fail(f"batch: child {k.upper()} launched lrn_fwd "
+                     f"{c['lrn_fwd']} times ({c['bf16']} bf16) in "
+                     f"{c['forwards']} forwards")
+        misses_b = {w: s["cache_misses"]
+                    for w, s in counts["b"]["compile_stats"].items()}
+        if counts["b"]["builds"] or any(misses_b.values()):
+            fail(f"batch: the warm child B built {counts['b']['builds']} "
+                 f"and recorded cache_hit=false events {misses_b}")
+        if counts["b"]["forwards"] == 0:
+            fail("batch: child B answered nothing")
+        out["launches"] = {k: c["lrn_fwd"] for k, c in counts.items()}
+        out["forwards"] = {k: c["forwards"] for k, c in counts.items()}
+        out["builds"] = {k: c["builds"] for k, c in counts.items()}
+
+        # -- 5. the console ------------------------------------------------
+        r = subprocess.run(
+            [sys.executable, "-m", "sparknet_tpu_torch.obs.summary",
+             "--json", *jsonl], env=env, capture_output=True, text=True,
+            timeout=120)
+        if r.returncode != 0:
+            fail(f"batch: sparknet-metrics exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        view = json.loads(r.stdout)["batch"]
+        run1_rows = sum(1 for l in open(jsonl[0])
+                        if json.loads(l).get("event") == "batch_unit")
+        # a SIGKILL between a manifest row and its JSONL row loses the
+        # latter: the killed run's JSONL may hold one unit fewer
+        if not before - 1 <= run1_rows <= before or \
+                view["units"] != run1_rows + n_units - before or \
+                view["retries_by_kind"].get("error", 0) != len(errors):
+            fail(f"batch: the batch view reads {view} (units committed "
+                 f"before the kill {before}, in its JSONL {run1_rows})")
+        print(f"batch: sparknet-metrics batch view: units {view['units']}, "
+              f"rows {view['rows']}, retries {view['retries_by_kind']}, "
+              f"units by replica {view['units_by_replica']} [{card}]",
+              flush=True)
+        t0 = time.perf_counter()
+        sc = [sys.executable, "-m", "sparknet_tpu_torch.obs.summary",
+              "--selfcheck", "--json"]
+        if device == "cpu":
+            sc += ["--device", "cpu"]
+        r = subprocess.run(sc, env=env, capture_output=True, text=True,
+                           timeout=600, cwd=root)
+        if r.returncode != 0:
+            fail(f"batch: sparknet-metrics --selfcheck exited "
+                 f"{r.returncode}: {r.stderr[-3000:]}")
+        s = json.loads(r.stdout.strip().splitlines()[-1])
+        missing = [v for v in ("serve", "freshness", "fleet", "batch", "slo",
+                               "step_time_breakdown") if not s.get(v)]
+        if missing or not s["rounds"]:
+            fail(f"batch: the selfcheck summary lacks {missing} (rounds "
+                 f"{s['rounds']})")
+        print(f"batch: sparknet-metrics --selfcheck on {device}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s, {s['rounds']} loss rows, "
+              f"views serve, freshness, fleet, batch, slo [{card}]",
+              flush=True)
+    finally:
+        if driver_proc is not None:
+            driver_proc.kill()
+            driver_proc.wait(timeout=30)
+        if provider is not None:
+            provider.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"batch: phase 13 passed in {out['seconds']:.1f} s: rows/s "
+          f"{out['rows_per_s']['run1']:.1f} (first run) and "
+          f"{out['rows_per_s']['resume']:.1f} (resumed); fc7 max abs diff "
+          f"{out['fc7_max_abs_err']:.3e}; spawn to port A "
+          f"{out['spawn_s']['a']:.2f} s (cold cache), B "
+          f"{out['spawn_s']['b']:.2f} s (warm) [{card}]", flush=True)
+    return out
+
+
 def profile_step(net, params, batch, solver_cfg, card: str,
                  top: int = 14) -> None:
     """One training step (forward, autograd, SGD update) at the main
@@ -4653,6 +5050,7 @@ def main() -> None:
     sharded = phase_sharded(card)
     routed = phase_router(card, serve["steady_img_s"], http["http_img_s"])
     fleet = phase_fleet(card)
+    batch = phase_batch(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -4696,6 +5094,8 @@ def main() -> None:
          "router_phase_forwards": routed["forwards"],
          "fleet_phase_launches": fleet["launches"],
          "fleet_phase_forwards": fleet["forwards"],
+         "batch_phase_launches": batch["launches"],
+         "batch_phase_forwards": batch["forwards"],
          "serve": {k: v for k, v in agg.items() if k.endswith("_ms")
                    or k == "ms"},
          "serve_timed_at": "norm1 + norm2, bucket 128, float32",

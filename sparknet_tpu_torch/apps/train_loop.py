@@ -142,9 +142,17 @@ Not ported yet, and what the loop does with each:
   - settings that would change results raise NotImplementedError:
     `trainer_impl="named"` and `state_sharding` other than "replicated"
     (ROADMAP A11);
-  - levers that do not change the numbers are accepted and logged as not
-    yet ported: `fused_boundary` (an eager round already averages right
-    after its last step), `compile_cache_dir`.
+  - a lever that does not change the numbers is accepted and logged as
+    not yet ported: `fused_boundary` (an eager round already averages
+    right after its last step).
+
+`compile_cache_dir` points the kernel builds at the warm-up cache
+(`utils/compile_cache.py`: the shared kernel-build directory; a relaunched
+worker with a warm directory runs no nvcc), logged as the JAX loop logs
+its persistent compile cache. The run's registry carries the compile
+events (`sparknet_compile_events_total`, `sparknet_compile_seconds`:
+`obs/device.attach_compile_metrics`), the spec compile that preceded it
+replayed.
 
 `history` runs the SLO ledger's metrics-history sampler over the run's
 registry on each machine's local rank 0 (the process that serves the
@@ -189,7 +197,7 @@ from ..utils.logger import Logger, default_logger
 from ..utils.metrics import PhaseTimers, ThroughputMeter
 from ..utils.profiling import maybe_trace
 
-_NOT_PORTED_LEVERS = ("fused_boundary", "compile_cache_dir")
+_NOT_PORTED_LEVERS = ("fused_boundary",)
 
 #: retried rounds sample a disjoint deterministic data window: round R on
 #: rollback generation g draws as logical round R + g * _RETRY_DATA_OFFSET
@@ -278,6 +286,12 @@ def train(cfg: RunConfig, spec: NetSpec, train_ds: ArrayDataset,
     levers = check_config(cfg)
     precision.set_policy(cfg.precision)
     resolve_solver(cfg)
+    # the warm-up cache (process-global): every kernel this run builds,
+    # and every relaunched worker's, goes through it
+    from ..utils.compile_cache import init_compile_cache
+    cache = init_compile_cache(cfg.compile_cache_dir)
+    if cache:
+        log.log(f"warm-up cache (kernel builds): {cache}")
     net = CompiledNet.compile(spec)
     group = init_data_group(device, workdir=cfg.workdir)
     try:
@@ -478,6 +492,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             "last round's residual data wait on this worker")
         dev_tel = obs_device.DeviceTelemetry(registry,
                                              devices=[trainer.device])
+        obs_device.attach_compile_metrics(registry)
     health_cfg = (cfg.health if cfg.health is not None
                   else HealthConfig(enabled=False))
     monitor = (HealthMonitor(health_cfg, registry=registry)

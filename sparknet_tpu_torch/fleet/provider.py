@@ -5,10 +5,10 @@ differences (ROADMAP C):
 
   - `SubprocessReplicaProvider` spawns the port's serve CLI
     (`python -m sparknet_tpu_torch.serve.app`); its children run on the
-    CUDA card unless `extra_args` carries `--device cpu`. The JAX
-    provider also hands its children the persistent XLA compile cache;
-    the port's warm-up cache is ROADMAP A10d, so the port passes no
-    compile-cache flag and refuses `compile_cache_dir`.
+    CUDA card unless `extra_args` carries `--device cpu`. With
+    `compile_cache_dir` they share the port's warm-up cache (the kernel
+    build directory, `--compile-cache DIR`), as the JAX provider's
+    children share the persistent XLA compile cache.
   - `PodReplicaProvider` assembles the same `scripts/tpu_pod_launch.sh`
     command sequence as the JAX stub, except that the serve command it
     runs is the port's module. The JAX package has no GPU provisioning
@@ -101,8 +101,9 @@ class SubprocessReplicaProvider(ReplicaProvider):
     gate (`rollout_gate`, when set) approves steps under — plus the
     fleet-shared `poll_interval_s`/`poll_jitter` cadence.
 
-    `compile_cache_dir` is accepted for the JAX signature and refused:
-    the port's warm-up cache is ROADMAP A10d."""
+    `compile_cache_dir`: the warm-up cache every child builds its kernels
+    into and loads them from (`--compile-cache`), so a replica grown after
+    the first runs no nvcc."""
 
     def __init__(self, sources: Dict[str, str],
                  workdir: Optional[str] = None,
@@ -117,17 +118,13 @@ class SubprocessReplicaProvider(ReplicaProvider):
                  poll_interval_s: Optional[float] = None,
                  poll_jitter: Optional[float] = None,
                  rollout_gate: Optional[str] = None):
-        if compile_cache_dir is not None:
-            raise NotImplementedError(
-                "SubprocessReplicaProvider.compile_cache_dir needs a "
-                "warm-up cache in place of the XLA compile cache: ROADMAP "
-                "A10d, which is not ported yet")
         self.sources = dict(sources)
         self.workdir = workdir or tempfile.mkdtemp(
             prefix="sparknet-fleet-")
         os.makedirs(self.workdir, exist_ok=True)
         self.max_batch = int(max_batch)
         self.outputs = tuple(outputs or ())
+        self.compile_cache_dir = compile_cache_dir
         self.heartbeat_every_s = float(heartbeat_every_s)
         self.spawn_timeout_s = float(spawn_timeout_s)
         self.extra_args = tuple(extra_args)
@@ -157,6 +154,8 @@ class SubprocessReplicaProvider(ReplicaProvider):
                "--heartbeat-every", str(self.heartbeat_every_s)]
         if self.outputs:
             cmd += ["--outputs", ",".join(self.outputs)]
+        if self.compile_cache_dir:
+            cmd += ["--compile-cache", self.compile_cache_dir]
         if self.checkpoint_dir:
             cmd += ["--checkpoint-dir",
                     self.checkpoint_dir.replace("{model}", model),

@@ -33,6 +33,10 @@ from .spec import NetSpec, validate
 
 ParamTree = Dict[str, Params]
 
+#: CompiledNet.compile memo: identical NetSpecs (frozen, hashable) compile
+#: once per process, as in the JAX package
+_SPEC_MEMO: Dict[NetSpec, "CompiledNet"] = {}
+
 
 def _to_nhwc_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     if len(shape) == 4:
@@ -57,6 +61,34 @@ class CompiledNet:
 
     @staticmethod
     def compile(spec: NetSpec) -> "CompiledNet":
+        """The compiled net of `spec`, stamped as a compile event
+        (obs/device.py). Identical specs return the memoized CompiledNet
+        (router lanes, elastic rebuilds and serve hot swaps of one
+        architecture), recorded as cache_hit="true"; a memo miss records
+        its real duration with cache_hit=None ("unknown": spec compilation
+        builds no kernel, so the warm-up cache neither applies to it nor
+        claims it)."""
+        import time as _time
+
+        from ..obs.device import note_compile
+        try:
+            cached = _SPEC_MEMO.get(spec)
+        except TypeError:  # unhashable spec (hand-built with lists)
+            cached = None
+        if cached is not None:
+            note_compile("net", 0.0, cache_hit=True)
+            return cached
+        t0 = _time.perf_counter()
+        net = CompiledNet._compile(spec)
+        note_compile("net", _time.perf_counter() - t0)
+        try:
+            _SPEC_MEMO[spec] = net
+        except TypeError:
+            pass
+        return net
+
+    @staticmethod
+    def _compile(spec: NetSpec) -> "CompiledNet":
         validate(spec)
         input_shapes = {i.name: _to_nhwc_shape(i.shape) for i in spec.inputs}
         input_dtypes = {i.name: i.dtype for i in spec.inputs}

@@ -6,15 +6,24 @@ a shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale binary is never loaded. The build goes to
-`sparknet_tpu_torch/_build/` (listed in .gitignore), written under a
-temporary name and renamed into place, so concurrent builders never load a
-half-written library. nvcc's report (`-Xptxas -v`: registers, shared
-memory, spills) is kept beside the library as `<name>-<hash>.log`.
+The file name carries a hash of the source, the flags and the toolkit's
+`nvcc --version` (read once per process), so a library built from other
+source, with other flags or by another nvcc is never loaded. The build
+goes to `sparknet_tpu_torch/_build/` (listed in .gitignore) unless
+`utils/compile_cache.init_compile_cache` points the process at another
+directory (the warm-up cache that several processes or machines share),
+written under a temporary name and renamed into place, so concurrent
+builders never load a half-written library. nvcc's report (`-Xptxas -v`:
+registers, shared memory, spills) is kept beside the library as
+`<name>-<hash>.log`.
 
 Building does not include PyTorch's headers, so one source compiles in
 seconds. `build_all` starts one nvcc per source at once.
+
+Each thread counts what its `build_all` calls found (`counts()`): `build`
+per nvcc run, `hit` per library already on disk, `miss` per library that
+was not (nvcc then ran). `utils/compile_cache.track_compiles` reads these
+counts over a region, on the thread that runs it.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -33,8 +42,28 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+DEFAULT_BUILD_DIR = BUILD_DIR
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_tls = threading.local()
+_toolkit: Optional[str] = None
+
+
+def counts() -> Dict[str, int]:
+    """This thread's running counts: {"build", "hit", "miss"}."""
+    c = getattr(_tls, "counts", None)
+    if c is None:
+        c = _tls.counts = {"build": 0, "hit": 0, "miss": 0}
+    return c
+
+
+def relocate(build_dir: Path) -> None:
+    """Build into and load from `build_dir` from now on (called by
+    `utils/compile_cache.init_compile_cache` only). Libraries this process
+    already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(build_dir)
 
 
 def nvcc_path() -> str:
@@ -51,11 +80,29 @@ def nvcc_path() -> str:
     return found
 
 
+def toolkit_id() -> str:
+    """`nvcc --version` of this machine's toolkit, read once per process
+    ("nvcc: not found" where there is none: nothing can be built then)."""
+    global _toolkit
+    if _toolkit is None:
+        try:
+            nvcc = nvcc_path()
+        except RuntimeError:
+            _toolkit = "nvcc: not found"
+        else:
+            _toolkit = subprocess.run([nvcc, "--version"], check=True,
+                                      capture_output=True,
+                                      text=True).stdout
+    return _toolkit
+
+
 def library_path(name: str) -> Path:
-    """Where the library for csrc/<name>.cu lives once built."""
+    """Where the library for csrc/<name>.cu lives once built: keyed by the
+    source, the flags and the toolkit."""
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(toolkit_id().encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -63,14 +110,18 @@ def _start(name: str):
     """Start nvcc for csrc/<name>.cu unless its library exists; returns
     (process or None, tmp path, final path)."""
     out = library_path(name)
+    c = counts()
     if out.exists():
+        c["hit"] += 1
         return None, None, out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    c["miss"] += 1
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    c["build"] += 1
     return proc, tmp, out
 
 

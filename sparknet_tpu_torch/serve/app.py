@@ -32,9 +32,13 @@ CLI over spkn:// with this process's device and net flags; `pod`: the
 the pool lever up to `--pool-max`; and staggered checkpoint adoption
 through `--rollout-gate` (a `{model}` template in `--models` mode).
 
+`--compile-cache DIR` is the warm-up cache (`utils/compile_cache.py`):
+the kernel-build directory the lanes and the fleet's children share, so a
+warm replica's cold start runs no nvcc (default `$SPARKNET_COMPILE_CACHE`,
+else `sparknet_tpu_torch/_build/`).
+
 The flags of later slices keep the JAX package's names and stop with an
-error naming their ROADMAP item: the graph backend (`--graph`) and the
-compile cache (`--compile-cache`).
+error naming their ROADMAP item: the graph backend (`--graph`).
 
 Examples:
     python -m sparknet_tpu_torch.serve.app --model caffenet --max-batch 128 \
@@ -168,8 +172,6 @@ def parse_weights_arg(spec: Optional[str]) -> dict:
 LATER_FLAGS = (
     ("graph", None, "the graph backend (backend/graph_net.py): "
                     "ROADMAP A12"),
-    ("compile_cache", None, "a warm-up cache in place of the XLA compile "
-                            "cache: ROADMAP A10d"),
 )
 
 
@@ -178,8 +180,6 @@ def _add_later_flags(p: argparse.ArgumentParser) -> None:
     with its ROADMAP item (defaults None = "not given")."""
     p.add_argument("--graph", default=None,
                    help="serialized graph model (not ported: ROADMAP A12)")
-    p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="compile cache (not ported: ROADMAP A10d)")
 
 
 def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
@@ -315,6 +315,11 @@ def main(argv=None) -> None:
     p.add_argument("--quant-tol", type=float, default=None,
                    help="override the quant parity tolerance (sets both "
                    "rtol and atol of the load-time allclose gate)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="warm-up cache: the shared kernel-build directory "
+                   "(default: $SPARKNET_COMPILE_CACHE if set, else "
+                   "sparknet_tpu_torch/_build/) — warm replica cold-starts "
+                   "run no nvcc")
     p.add_argument("--outputs", default=None,
                    help="comma-separated blob names to return "
                    "(default: the net's per-row outputs)")
@@ -461,7 +466,8 @@ def main(argv=None) -> None:
             poll_interval_s=args.poll_interval,
             poll_jitter=args.poll_jitter,
             replica_name=args.replica_name, rollout_gate=gate,
-            canary=not args.no_canary, quant=quant)
+            canary=not args.no_canary, quant=quant,
+            compile_cache_dir=args.compile_cache)
 
     # ONE admission door shared by both data planes (a tenant's budget
     # is a property of the tenant, not of the wire it arrived on) AND by
@@ -511,6 +517,7 @@ def main(argv=None) -> None:
                 poll_interval_s=args.poll_interval,
                 poll_jitter=args.poll_jitter,
                 rollout_gate=args.rollout_gate,
+                compile_cache_dir=args.compile_cache,
                 extra_args=_child_args(args))
         elif args.fleet_provider == "pod":
             provider = PodReplicaProvider(dict(sources), args.pod_zone,

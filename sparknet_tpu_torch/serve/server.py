@@ -6,8 +6,12 @@ requests are padded to the smallest configured bucket size >= the formed
 batch (default: powers of two up to max_batch), so the net sees exactly
 len(buckets) batch shapes; the first forward of each bucket is counted in
 `bucket_compiles` and timed (on the card it pays cuDNN's algorithm choice
-and the allocator's first growth for that shape). Padding rows are zeros;
-de-padding slices each request's own row back out. Every layer is
+and the allocator's first growth for that shape, and the build of any
+kernel not yet in the warm-up cache), and recorded as a "serve_bucket"
+compile event with the cache's verdict (`obs/device.py`,
+`utils/compile_cache.py`; `compile_cache_dir` is the shared kernel-build
+directory, initialized at construction, first server wins). Padding rows
+are zeros; de-padding slices each request's own row back out. Every layer is
 row-independent across the batch, so padding within one bucket does not
 change a request's answer.
 
@@ -48,10 +52,8 @@ block of `status()`). `rollout_gate` makes the manager adopt only the
 steps the fleet rollout duty approved for `replica_name`
 (`fleet/rollout.py`).
 
-Not ported: the persistent compile cache (`compile_cache_dir` raises
-NotImplementedError when set: ROADMAP A10d), and raw-pixel preprocessing
-at the door (the JAX server's `preprocessor`): requests carry the net's
-own input schema.
+Not ported: raw-pixel preprocessing at the door (the JAX server's
+`preprocessor`): requests carry the net's own input schema.
 """
 from __future__ import annotations
 
@@ -64,11 +66,13 @@ import numpy as np
 import torch
 
 from ..model.quant import QuantConfig
+from ..obs import device as obs_device
 from ..obs import reqtrace
 from ..obs import trace as obs_trace
 from ..obs.http import StatusServer
 from ..obs.meta import register_build_info
 from ..obs.registry import MetricsRegistry
+from ..utils.compile_cache import init_compile_cache, track_compiles
 from ..utils.heartbeat import HeartbeatWriter
 from ..utils.logger import Logger
 from ..utils.metrics import FillMeter, LatencyStats
@@ -164,14 +168,6 @@ def default_buckets(max_batch: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
-#: ServeConfig fields of later slices: (field, value that means "off",
-#: what it needs)
-_NOT_PORTED = (
-    ("compile_cache_dir", None,
-     "a warm-up cache in place of the XLA compile cache: ROADMAP A10d"),
-)
-
-
 @dataclass
 class ServeConfig:
     """Knobs for the inference server (the serve CLI mirrors these)."""
@@ -192,7 +188,10 @@ class ServeConfig:
     # weights, bfloat16 activations, every install parity-gated against
     # the f32 forward
     quant: Optional[Any] = None
-    # ROADMAP A10d: a warm-up cache; only None is accepted
+    # the warm-up cache (utils/compile_cache.py): the kernel-build
+    # directory replicas share, so a warm replica's cold start builds no
+    # kernel. None = $SPARKNET_COMPILE_CACHE if set, else the default
+    # sparknet_tpu_torch/_build/
     compile_cache_dir: Optional[str] = None
     # per-model latency objective (ms): stamped into /status; with
     # history it is the latency objective the burn-rate alerter pages on
@@ -263,11 +262,6 @@ class ServeConfig:
                 and not 0.0 < self.slo_availability < 1.0:
             raise ValueError(f"slo_availability must be in (0, 1) "
                              f"(got {self.slo_availability})")
-        for field, off, what in _NOT_PORTED:
-            if getattr(self, field) != off:
-                raise NotImplementedError(
-                    f"ServeConfig.{field} needs {what}, which is not "
-                    f"ported yet")
         self.quant = QuantConfig.coerce(self.quant)
 
 
@@ -280,6 +274,10 @@ class InferenceServer:
         self.cfg = cfg = cfg if cfg is not None else ServeConfig()
         self.model_name = cfg.model_name
         self.log = logger
+        # process-global, so the first server wins on the directory; called
+        # unconditionally (the train loop's rule): with no knob,
+        # $SPARKNET_COMPILE_CACHE still applies
+        init_compile_cache(cfg.compile_cache_dir)
         self.buckets = tuple(cfg.buckets or default_buckets(cfg.max_batch))
         # quantized serving: bfloat16 activation buffers (half the H2D
         # bytes)
@@ -735,14 +733,20 @@ class InferenceServer:
                 rt.stage(r.trace, "form", rt.to_us(t_form),
                          (t_fwd0 - t_form) * 1e6,
                          bucket=bucket, batch_n=n)
-            out = self.net.forward(
-                full, blob_names=list(set(self.cfg.outputs or ()) | extra))
+            with track_compiles() as tc:
+                out = self.net.forward(
+                    full,
+                    blob_names=list(set(self.cfg.outputs or ()) | extra))
             t_fwd1 = time.perf_counter()
             if bucket not in self._compiled_buckets:
+                # cache_hit: whether this forward found every kernel it
+                # launched in the warm-up cache (no nvcc ran)
                 self._compiled_buckets.add(bucket)
                 self._c_bucket_compiles.inc(model=self.model_name)
                 self._h_bucket_compile.observe(t_fwd1 - t_fwd0,
                                                model=self.model_name)
+                obs_device.note_compile("serve_bucket", t_fwd1 - t_fwd0,
+                                        cache_hit=tc.cache_hit)
                 self._log(f"serve: first forward of bucket {bucket} took "
                           f"{t_fwd1 - t_fwd0:.3f}s")
             # de-pad: slice each request's row out of per-row blobs; batch

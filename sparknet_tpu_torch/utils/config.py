@@ -184,12 +184,11 @@ class RunConfig:
     # checkpoint/recovery boundary).
     fused_boundary: bool = True
     collect_async: bool = True
-    # persistent XLA compile cache (utils/compile_cache.py): a directory
-    # jax reuses compiled executables from ACROSS processes — replica
-    # cold-start, elastic trainer_factory rebuilds after a resize, and
-    # hot-swap retraces all skip recompilation when the cache is warm.
-    # None = only $SPARKNET_COMPILE_CACHE / $JAX_COMPILATION_CACHE_DIR,
-    # if set; compile events grow a cache_hit label either way
+    # the warm-up cache (utils/compile_cache.py): the kernel-build
+    # directory processes share, so a relaunched worker or a replica with
+    # a warm directory runs no nvcc. None = $SPARKNET_COMPILE_CACHE if
+    # set, else sparknet_tpu_torch/_build/; compile events carry a
+    # cache_hit label either way
     # (sparknet_compile_events_total{what,cache_hit}).
     compile_cache_dir: Optional[str] = None
     # checkpoint. checkpoint_dir accepts a local path OR a gs://|s3://

@@ -457,11 +457,11 @@ def test_run_metadata_names_torch_and_the_device():
 
 # -- the train loop's surface ------------------------------------------------
 
-#: families only the JAX loop registers: the compile-event record, the
-#: jitted round's cache size and the live jax array count, which have no
-#: eager counterpart (ROADMAP A10)
-JAX_ONLY = {"sparknet_compile_events_total", "sparknet_compile_seconds",
-            "sparknet_train_round_compiled_variants",
+#: families only the JAX loop registers: the jitted round's cache size
+#: (an eager process has no jit cache whose entries the round could count)
+#: and the live jax array count (it holds no jax arrays). The compile-event
+#: families are in both loops' registries.
+JAX_ONLY = {"sparknet_train_round_compiled_variants",
             "sparknet_device_live_arrays"}
 #: the caching allocator's reserved bytes, which XLA does not report
 PORT_ONLY = {"sparknet_device_hbm_bytes_reserved"}

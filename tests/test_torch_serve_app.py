@@ -3,8 +3,9 @@ package's: the registry's metric families, the /status keys and the
 heartbeat schema of a watched server behind an HTTP frontend; the serve
 CLI with `--checkpoint-dir` and `--heartbeat` against the JAX CLI's
 printed keys; the CLI answering on its own HTTP socket (`--http-port 0`,
-a subprocess); and the flags and config fields of later slices, which
-stop naming their ROADMAP item.
+a subprocess); the flag of a later slice (`--graph`), which stops
+naming its ROADMAP item; and `--compile-cache` / `compile_cache_dir`,
+which point the kernel builds at the warm-up cache.
 """
 import json
 import os
@@ -238,7 +239,7 @@ def test_flags_of_later_slices_stop_naming_their_roadmap_item(
     if unset is False:
         argv.append(flag)
     else:
-        argv += [flag, {"graph": "g.pb", "compile_cache": "c"}[dest]]
+        argv += [flag, {"graph": "g.pb"}[dest]]
     with pytest.raises(SystemExit) as e:
         app.main(argv)
     assert e.value.code == 2
@@ -246,13 +247,34 @@ def test_flags_of_later_slices_stop_naming_their_roadmap_item(
     assert flag in err and "ROADMAP" in err and "not ported" in err
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("compile_cache_dir", "c", "A10d")])
-def test_config_fields_of_later_slices_raise_naming_their_item(field, value,
-                                                              item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ServeConfig(**{field: value})
-    ServeConfig(**{field: getattr(ServeConfig(), field)})  # the default
+@pytest.mark.parametrize("how", ["config", "flag"])
+def test_the_compile_cache_points_the_kernel_builds_at_the_warm_up_cache(
+        how, tmp_path, capsys):
+    """`ServeConfig.compile_cache_dir` and the CLI's `--compile-cache`
+    (each lane's config) initialize the warm-up cache when the server is
+    built: the kernel builds go to that directory, first caller wins."""
+    from sparknet_tpu_torch.ops import _build
+    from sparknet_tpu_torch.utils import compile_cache
+
+    d = str(tmp_path / "kernel-cache")
+    compile_cache.reset_for_tests()
+    try:
+        if how == "config":
+            cfg = ServeConfig(max_batch=4, compile_cache_dir=d)
+            assert compile_cache.cache_dir() is None
+            InferenceServer(TorchNet(zoo.lenet(batch=4), device="cpu"), cfg)
+        else:
+            app.main(["--model", "lenet", "--device", "cpu", "--demo", "1",
+                      "--compile-cache", d, "--workdir", str(tmp_path)])
+            assert json.loads(capsys.readouterr().out.strip()
+                              .splitlines()[-1])["requests_ok"] == 1
+        assert compile_cache.cache_dir() == d and os.path.isdir(d)
+        assert _build.library_path("lrn_fwd").parent == Path(d)
+        assert compile_cache.init_compile_cache(
+            str(tmp_path / "other")) == d
+    finally:
+        compile_cache.reset_for_tests()
+    assert _build.BUILD_DIR == _build.DEFAULT_BUILD_DIR
 
 
 def test_tenant_flags_build_the_door(tmp_path, capsys):
