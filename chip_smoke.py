@@ -7,7 +7,8 @@ hot-reloads a training step under traffic, with per-shard checkpoints, a
 host trace, the profiler and the relaunch supervisor, behind a router
 with a remote replica over the binary wire and shared memory, as a
 fleet that grows, rolls out, heals and shrinks itself on its SLO, and as
-a bulk-inference job over two replicas that share a warm-up cache?
+a bulk-inference job over two replicas that share a warm-up cache, and
+with ZeRO state sharding and the logical checkpoint layout?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -325,8 +326,10 @@ Phases, in order; any failure exits non-zero before the result line:
    (1, 8, 64, 128) and `--binary-port`, each child counting its forwards,
    lrn_fwd launches and nvcc builds): child A on the cold directory,
    child B on the same directory once A is up. Checks: A ran nvcc once,
-   for lrn_fwd; B ran it zero times and recorded no `cache_hit="false"`
-   compile event. Then a seeded 512-row 227x227x3 input goes through
+   for lrn_fwd, and recorded at least one `cache_hit="false"` compile
+   event (its first serve_bucket event carries the build its server ran
+   before the install canary); B ran it zero times and recorded no
+   `cache_hit="false"` compile event. Then a seeded 512-row 227x227x3 input goes through
    `python -m sparknet_tpu_torch.batch.driver` (fc7, 64-row units,
    window 16, concurrency 2, tenant batch at priority low, paced): the
    driver is SIGKILLed after 2 committed units, resumed in this process,
@@ -343,10 +346,29 @@ Phases, in order; any failure exits non-zero before the result line:
    every view. Prints each child's spawn-to-port seconds and compile
    events, the rows/s of both runs, the largest fc7 difference and the
    phase's seconds.
-14. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
-   12's and 13's launches and forwards per process), then the result
-   line `{"ok": true, "device": {...}}` as the last line of standard
-   output.
+14. The trainers beyond parity: full-width CaffeNet (crop 227, 1000
+   classes), bfloat16, b256, τ = 5, 3 rounds of seeded int8 images,
+   cuDNN's deterministic algorithms, a world of one, through
+   `apps.train_loop.train` with `trainer_impl="shard_map"` (the
+   reference run), then `"named"` with `state_sharding` "replicated",
+   "momentum" and "full" (twice: a step written with
+   `checkpoint_sharded="on"`, then "off"). Checks: each named run's
+   losses, final params and momentum `torch.equal` to the reference
+   run's (at one rank the gather, the reduce-scatter and the division
+   by 1 are exact); lrn_fwd / lrn_bwd / maxpool_bwd 2 / 2 / 3 launches a
+   step in every run; the "full" run's two steps restore to the same
+   flat map bit for bit, stamped `layout="logical"`,
+   `state_sharding="full"`; each restores into a `ParallelTrainer` and a
+   "momentum" `ShardedTrainer` with params and momentum `torch.equal` to
+   the run's (the one logical momentum taken as it is: the JAX
+   `adapt_state` rule). Prints each run's warm rounds, peak memory and
+   at-rest state, the FLOPs an image from `utils/flops.py`, and an MFU
+   line for phase 4's and each of this phase's warm rounds against the
+   card's dense bf16 peak, with the card's name and power limit.
+15. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
+   12's and 13's launches and forwards per process, every row phase
+   14's launches per run), then the result line `{"ok": true,
+   "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
 `sparknet_tpu_torch` package is not beside this script.
@@ -4684,13 +4706,10 @@ def phase_batch(card: str, device: str = "cuda", crop: int = 227,
                 for n in os.listdir(cache)):
             fail(f"batch: no lrn_fwd library in the warm-up cache: "
                  f"{os.listdir(cache)}")
-        sites = {w: s for w, s in cold["a"]["compile_stats"].items()
-                 if s["cache_misses"]}
-        print(f"batch: child A's build was recorded at "
-              f"{sites or 'no site'}: its first forward is the install "
-              f"canary (bucket 1, before the frontend opens), which no "
-              f"compile site wraps, so its bucket first forwards read "
-              f"cache_hit=true too [{card}]", flush=True)
+        print(f"batch: child A's nvcc run happened in the server's start, "
+              f"before the install canary; it joins A's first "
+              f"serve_bucket event (its first request's bucket), checked "
+              f"below [{card}]", flush=True)
 
         # -- 2. the input and the job, killed mid-way ----------------------
         rng = np.random.default_rng(13)
@@ -4877,6 +4896,15 @@ def phase_batch(card: str, device: str = "cuda", crop: int = 227,
         if counts["b"]["builds"] or any(misses_b.values()):
             fail(f"batch: the warm child B built {counts['b']['builds']} "
                  f"and recorded cache_hit=false events {misses_b}")
+        # the cold child A's build shows in a compile event (ROADMAP C1)
+        misses_a = {w: s["cache_misses"]
+                    for w, s in counts["a"]["compile_stats"].items()}
+        print(f"batch: cache_hit=false events: child A {misses_a}, child B "
+              f"{misses_b} [{card}]", flush=True)
+        if device != "cpu" and not misses_a.get("serve_bucket"):
+            fail(f"batch: the cold child A ran nvcc but recorded no "
+                 f"cache_hit=false serve_bucket event: {misses_a}")
+        out["cache_misses"] = {"a": misses_a, "b": misses_b}
         if counts["b"]["forwards"] == 0:
             fail("batch: child B answered nothing")
         out["launches"] = {k: c["lrn_fwd"] for k, c in counts.items()}
@@ -4939,6 +4967,214 @@ def phase_batch(card: str, device: str = "cuda", crop: int = 227,
           f"{out['fc7_max_abs_err']:.3e}; spawn to port A "
           f"{out['spawn_s']['a']:.2f} s (cold cache), B "
           f"{out['spawn_s']['b']:.2f} s (warm) [{card}]", flush=True)
+    return out
+
+
+def phase_trainers(card: str, phase4_round_s=None, device: str = "cuda",
+                   crop: int = 227, batch: int = 256, tau: int = 5,
+                   rounds: int = 3, n_classes: int = 1000) -> dict:
+    """Phase 14 (module docstring): the trainers beyond parity at a world
+    of one. Returns each run's launch counts, warm round seconds and peak
+    memory, and the MFU figures. The arguments let the phase be rehearsed
+    on the CPU at a small size (counts then 0, MFU not measured)."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import zoo
+    from sparknet_tpu_torch.data.dataset import ArrayDataset
+    from sparknet_tpu_torch.model.net import CompiledNet
+    from sparknet_tpu_torch.parallel.mesh import init_data_group
+    from sparknet_tpu_torch.parallel.sharded import ShardedTrainer
+    from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+    from sparknet_tpu_torch.solver import SolverConfig
+    from sparknet_tpu_torch.utils import checkpoint as ckpt
+    from sparknet_tpu_torch.utils import flops
+    from sparknet_tpu_torch.utils.config import RunConfig
+
+    r = np.random.default_rng(14)
+    n = tau * batch
+    data = r.integers(-128, 128, (n, crop, crop, 3), dtype=np.int8)
+    labels = r.integers(0, n_classes, (n, 1)).astype(np.int32)
+    train_ds = ArrayDataset({"data": data, "label": labels})
+    spec = zoo.caffenet(batch=batch, crop=crop, n_classes=n_classes)
+    solver = SolverConfig(**IMAGENET_SOLVER)
+    kernels = device == "cuda"
+    steps = tau * rounds
+    plan = [("shard_map", "shard_map", "replicated", None),
+            ("named replicated", "named", "replicated", None),
+            ("named momentum", "named", "momentum", None),
+            ("named full per-shard", "named", "full", "on"),
+            ("named full monolithic", "named", "full", "off")]
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out: dict = {"launches": {}, "round_s": {}, "peak_gib": {}}
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trainers_") \
+                as tmp:
+            base = RunConfig(model="caffenet", n_classes=n_classes,
+                             crop=crop, solver=solver, tau=tau,
+                             local_batch=batch, max_rounds=rounds,
+                             eval_every=0, precision="bfloat16", seed=0,
+                             workdir=tmp, checkpoint_every=rounds,
+                             checkpoint_async=False)
+            runs = {}
+            for label, impl, sharding, fmt in plan:
+                cfg = dataclasses.replace(
+                    base, trainer_impl=impl, state_sharding=sharding,
+                    checkpoint_dir=(os.path.join(tmp, f"ck-{fmt}")
+                                    if fmt else None),
+                    checkpoint_sharded=fmt or "auto")
+                # the earlier runs' states stay on the card for the
+                # comparisons below: this run's peak counts above them
+                held = (torch.cuda.memory_allocated() / 2 ** 30
+                        if kernels else 0.0)
+                run = runs[label] = _train_run(
+                    card, cfg, spec, train_ds, None,
+                    f"trainers {label}: caffenet {crop}/{n_classes} "
+                    f"b{batch} bf16 tau{tau}", device)
+                if kernels:
+                    _expect_counts(label, run["counts"], {
+                        "lrn_fwd": 2 * steps, "lrn_fwd_scale": 0,
+                        "lrn_bwd": 2 * steps, "maxpool_bwd": 3 * steps})
+                warm = [x["round_s"] for x in run["rounds"][1:]]
+                out["launches"][label] = run["counts"]
+                out["round_s"][label] = warm
+                out["peak_gib"][label] = run["peak_gib"] - held
+                st = run["state"]
+                print(f"trainers[{label}]: warm rounds {_stats(warm)} s "
+                      f"({tau * batch / statistics.median(warm):.1f} "
+                      f"img/s), peak device memory "
+                      f"{run['peak_gib'] - held:.3f} GiB above the "
+                      f"{held:.3f} GiB held before the run, at-rest state "
+                      f"{st.flat_params.numel()} + "
+                      f"{st.flat_momentum.numel()} elements [{card}]",
+                      flush=True)
+
+            # every named run is the shard_map run, bit for bit: at one
+            # rank the gather, the reduce-scatter and the division by 1
+            # are exact (a ZeRO leaf's one piece is the whole leaf)
+            ref = runs["shard_map"]
+            ref_loss = [x["loss"] for x in ref["rounds"]]
+            for label, run in runs.items():
+                loss = [x["loss"] for x in run["rounds"]]
+                diff = [f"{kind}/{l}/{p}"
+                        for kind in ("params", "momentum")
+                        for l, lp in getattr(ref["state"], kind).items()
+                        for p, t in lp.items()
+                        if not torch.equal(getattr(run["state"], kind)[l][p],
+                                           t)]
+                if loss != ref_loss or diff:
+                    fail(f"trainers: {label} is not the shard_map run: "
+                         f"losses {loss} vs {ref_loss}, differing leaves "
+                         f"{diff[:6]}")
+            print(f"trainers: named replicated / momentum / full: losses "
+                  f"{ref_loss}, final params and logical momentum "
+                  f"torch.equal to the shard_map run's; launches per step "
+                  f"lrn_fwd 2 / lrn_bwd 2 / maxpool_bwd 3 in every run "
+                  f"[{card}]", flush=True)
+
+            # the "full" run's per-shard and monolithic steps: one flat map
+            steps_ = {}
+            for fmt in ("on", "off"):
+                d = os.path.join(tmp, f"ck-{fmt}")
+                flat, step, extra = ckpt.restore_flat(d)
+                meta = ckpt._load_meta(os.path.join(d, f"step-{step}"))
+                if ("shards" in meta) != (fmt == "on") or step != rounds:
+                    fail(f"trainers: checkpoint_sharded={fmt} wrote step "
+                         f"{step} with meta keys {sorted(meta)}")
+                stamp = (extra.get("layout"), extra.get("state_sharding"),
+                         extra.get("tp"), extra.get("n_devices"))
+                if stamp != ("logical", "full", 1, 1):
+                    fail(f"trainers: step extra (layout, state_sharding, "
+                         f"tp, n_devices) = {stamp}")
+                steps_[fmt] = (flat, extra)
+            on, off = steps_["on"][0], steps_["off"][0]
+            if sorted(on) != sorted(off):
+                fail(f"trainers: per-shard keys {sorted(on)} != "
+                     f"monolithic {sorted(off)}")
+            for k in on:
+                a, b = on[k], off[k]
+                same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                        else np.asarray(a).dtype == np.asarray(b).dtype
+                        and np.array_equal(a, b))
+                if not same:
+                    fail(f"trainers: per-shard and monolithic {k} differ")
+            print(f"trainers: the full run's per-shard and monolithic "
+                  f"steps restore to the same {len(on)} leaves bit for "
+                  f"bit, stamped layout=logical state_sharding=full "
+                  f"[{card}]", flush=True)
+
+            # each step restores into the replica-layout trainer and into a
+            # "momentum" trainer: params as saved; the one logical
+            # momentum taken as it is (the JAX adapt_state rule)
+            full = runs["named full per-shard"]["state"]
+            net = CompiledNet.compile(spec)
+            group = init_data_group(device, workdir=tmp)
+            try:
+                for fmt, (flat, extra) in steps_.items():
+                    for tr in (ParallelTrainer(net, solver, group, tau=tau),
+                               ShardedTrainer(net, solver, group, tau=tau,
+                                              state_sharding="momentum")):
+                        st = tr.state_from_checkpoint(flat, extra)
+                        bad = [f"{kind}/{l}/{p}"
+                               for kind in ("params", "momentum")
+                               for l, lp in getattr(full, kind).items()
+                               for p, t in lp.items()
+                               if not torch.equal(
+                                   getattr(st, kind)[l][p].detach(),
+                                   t.detach())]
+                        if bad or st.it != steps:
+                            fail(f"trainers: the {fmt} step restored into "
+                                 f"{type(tr).__name__} differs at "
+                                 f"{bad[:6]} (it {st.it})")
+                        del st
+            finally:
+                group.close()
+            print(f"trainers: both steps restore into ParallelTrainer and "
+                  f"ShardedTrainer(momentum) with params and momentum "
+                  f"torch.equal to the full run's [{card}]", flush=True)
+            del runs, full
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+
+    # FLOPs per image and MFU of the warm rounds
+    cnet = CompiledNet.compile(spec)
+    fwd = flops.forward_flops_per_image(cnet)
+    per_img = flops.train_flops_per_image(cnet)
+    kind = torch.cuda.get_device_name(0) if kernels else "cpu"
+    peak = flops.peak_bf16_flops(kind)
+    print(f"flops: CaffeNet {crop}/{n_classes}: {fwd / 1e9:.6f} GFLOP an "
+          f"image forward (conv + inner product), {per_img / 1e9:.6f} a "
+          f"training image (x{flops.TRAIN_FWD_MULT:g}), "
+          f"utils/flops.py [{card}]", flush=True)
+    out["flops_per_image"] = per_img
+    out["mfu"] = {}
+    cells = ([("phase 4 shard_map", phase4_round_s)] if phase4_round_s
+             else []) + [(f"phase 14 {k}", v)
+                         for k, v in out["round_s"].items()]
+    for name, xs in cells:
+        med = statistics.median(xs)
+        img_s = tau * batch / med
+        if not peak:
+            print(f"mfu[{name}]: {img_s:.1f} img/s; MFU not measured (no "
+                  f"peak for {kind!r}) [{card}]", flush=True)
+            continue
+        mfu = img_s * per_img / peak
+        out["mfu"][name] = mfu
+        print(f"mfu[{name}]: median warm round {med * 1e3:.2f} ms, "
+              f"{img_s:.1f} img/s, MFU {100 * mfu:.2f}% of "
+              f"{peak / 1e12:g} TFLOP/s dense bf16 [{card}]", flush=True)
+    print(f"trainers: phase 14 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    out["steps"] = steps
     return out
 
 
@@ -5051,6 +5287,7 @@ def main() -> None:
     routed = phase_router(card, serve["steady_img_s"], http["http_img_s"])
     fleet = phase_fleet(card)
     batch = phase_batch(card)
+    trainers = phase_trainers(card, train["warm_round_s"])
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -5084,6 +5321,8 @@ def main() -> None:
              k: c["lrn_fwd"] for k, c in elastic["launches"].items()},
          "sharded_phase_launches": {
              k: c["lrn_fwd"] for k, c in sharded["launches"].items()},
+         "trainers_phase_launches": {
+             k: c["lrn_fwd"] for k, c in trainers["launches"].items()},
          "max_abs_err": max(agg["max_abs_err"], lrn_train["max_abs_err"]),
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
@@ -5119,6 +5358,8 @@ def main() -> None:
              k: c["lrn_bwd"] for k, c in elastic["launches"].items()},
          "sharded_phase_launches": {
              k: c["lrn_bwd"] for k, c in sharded["launches"].items()},
+         "trainers_phase_launches": {
+             k: c["lrn_bwd"] for k, c in trainers["launches"].items()},
          "max_abs_err": lrn_train["max_abs_err"], **bwd,
          "timed_at": "norm1 + norm2, batch 256, bfloat16, recompute mode",
          "saved_scale_route_launches": train["saved_launches"]["lrn_bwd"],
@@ -5139,6 +5380,8 @@ def main() -> None:
              k: c["maxpool_bwd"] for k, c in elastic["launches"].items()},
          "sharded_phase_launches": {
              k: c["maxpool_bwd"] for k, c in sharded["launches"].items()},
+         "trainers_phase_launches": {
+             k: c["maxpool_bwd"] for k, c in trainers["launches"].items()},
          "max_abs_err": pool["max_abs_err"], **mp["ties"],
          "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
                      "tie-heavy input",
@@ -5150,7 +5393,8 @@ def main() -> None:
         "imagenet_phase_steps": inet["steps"],
         "stream_phase_steps": stream["steps"],
         "elastic_phase_steps": elastic["steps"],
-        "sharded_phase_steps": sharded["steps"]}), flush=True)
+        "sharded_phase_steps": sharded["steps"],
+        "trainers_phase_steps": trainers["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

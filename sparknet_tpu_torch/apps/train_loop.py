@@ -138,13 +138,20 @@ and a `flush` instant with round and loss per flushed round
 (`utils/profiling.py`: CPU and, on the card, CUDA activity) and exports
 its Chrome trace there.
 
-Not ported yet, and what the loop does with each:
-  - settings that would change results raise NotImplementedError:
-    `trainer_impl="named"` and `state_sharding` other than "replicated"
-    (ROADMAP A11);
-  - a lever that does not change the numbers is accepted and logged as
-    not yet ported: `fused_boundary` (an eager round already averages
-    right after its last step).
+The trainer (`resolve_trainer_impl`, the JAX loop's): `trainer_impl`
+"shard_map" is `ParallelTrainer` (the replica layout), "named" is
+`parallel/sharded.py:ShardedTrainer` (the logical layout, with
+`state_sharding` "replicated", "momentum" or "full"), and "auto" reads
+$SPARKNET_TRAINER_IMPL, else "shard_map". A step's `extra` carries the
+layout and state sharding under the JAX keys when the layout is logical,
+and a resume of another topology, layout or state sharding takes the
+trainer's `adapt_state` ("ELASTIC resume" in the log). Tensor parallelism
+is reached through the trainers' API (`tp=`), not through the loop, as in
+the JAX package.
+
+Not ported: a lever that does not change the numbers is accepted and
+logged as not yet ported: `fused_boundary` (an eager round already
+averages right after its last step).
 
 `compile_cache_dir` points the kernel builds at the warm-up cache
 (`utils/compile_cache.py`: the shared kernel-build directory; a relaunched
@@ -187,6 +194,7 @@ from ..obs.registry import MetricsRegistry
 from ..parallel.elastic import (RELAUNCHED_ENV, ElasticRelaunch,
                                 MembershipController, write_relaunch_record)
 from ..parallel.mesh import DataGroup, init_data_group, machine_topology
+from ..parallel.sharded import ShardedTrainer
 from ..parallel.trainer import ParallelTrainer, TrainState
 from ..utils import checkpoint as ckpt
 from ..utils.config import RunConfig
@@ -236,24 +244,31 @@ def resolve_solver(cfg: RunConfig):
     return cfg.solver
 
 
+def resolve_trainer_impl(cfg: RunConfig) -> str:
+    """cfg.trainer_impl -> "shard_map" (`ParallelTrainer`) or "named"
+    (`ShardedTrainer`): "auto" defers to $SPARKNET_TRAINER_IMPL and falls
+    back to "shard_map" (the JAX loop's rule). A state sharding other
+    than "replicated" needs the named trainer."""
+    impl = cfg.trainer_impl
+    if impl == "auto":
+        impl = os.environ.get("SPARKNET_TRAINER_IMPL", "shard_map")
+    if impl not in ("shard_map", "named"):
+        raise ValueError(f"unknown trainer_impl {impl!r}: expected "
+                         f"'auto', 'shard_map', or 'named'")
+    if impl != "named" and cfg.state_sharding != "replicated":
+        raise ValueError(
+            f"state_sharding={cfg.state_sharding!r} needs the NamedSharding "
+            f"trainer — set trainer_impl='named' (resolved: {impl!r})")
+    return impl
+
+
 def check_config(cfg: RunConfig) -> list:
-    """Raise on settings that would change results and are not ported;
-    return the names of the accepted-but-not-ported levers that are on."""
+    """Raise on settings that are not valid or not ported; return the
+    names of the accepted-but-not-ported levers that are on."""
     if cfg.checkpoint_sharded not in ("auto", "on", "off"):
         raise ValueError(f"checkpoint_sharded={cfg.checkpoint_sharded!r}: "
                          f"expected 'auto', 'on', or 'off'")
-    refused = {
-        "trainer_impl='named'": cfg.trainer_impl == "named",
-        f"state_sharding={cfg.state_sharding!r}":
-            cfg.state_sharding != "replicated",
-    }
-    bad = [k for k, on in refused.items() if on]
-    if bad:
-        raise NotImplementedError(
-            f"not ported to the PyTorch port yet: {', '.join(bad)} "
-            f"(ROADMAP A11)")
-    if cfg.trainer_impl not in ("auto", "shard_map"):
-        raise ValueError(f"unknown trainer_impl {cfg.trainer_impl!r}")
+    resolve_trainer_impl(cfg)
     if cfg.ops_interpret:
         raise ValueError("ops_interpret runs Pallas kernels under the JAX "
                          "interpreter; the port has none")
@@ -264,7 +279,10 @@ def probe_value(state: TrainState, net: CompiledNet) -> torch.Tensor:
     """First scalar of the first parametric layer's weights — the
     reference's divergence probe (`apps/CifarApp.scala:147`) — as a 0-d
     view of the params; the loop copies it into the round's record before
-    the next round updates the params in place."""
+    the next round updates the params in place. Where the params at rest
+    are split ("full" state sharding) the round left it in `state.head`."""
+    if state.head is not None:
+        return state.head
     return state.params[net.param_layers()[0]]["w"].detach().reshape(-1)[0]
 
 
@@ -301,15 +319,23 @@ def train(cfg: RunConfig, spec: NetSpec, train_ds: ArrayDataset,
         compute_health = cfg.health is not None and cfg.health.enabled
         elastic_tau = (cfg.elastic is not None and cfg.elastic.enabled
                        and cfg.elastic.tau_adapt)
-        trainer = ParallelTrainer(net, cfg.solver, group, tau=cfg.tau,
-                                  mode=cfg.mode,
-                                  compute_health=compute_health,
-                                  elastic_tau=elastic_tau,
-                                  ops=OpsImpl(lrn=cfg.lrn_impl,
-                                              pool=cfg.pool_impl),
-                                  donate_batches=cfg.donate_batches)
+        trainer_kw: Dict[str, Any] = {}
+        trainer_cls = ParallelTrainer
+        if resolve_trainer_impl(cfg) == "named":
+            trainer_cls = ShardedTrainer
+            trainer_kw["state_sharding"] = cfg.state_sharding
+        trainer = trainer_cls(net, cfg.solver, group, tau=cfg.tau,
+                              mode=cfg.mode, compute_health=compute_health,
+                              elastic_tau=elastic_tau,
+                              ops=OpsImpl(lrn=cfg.lrn_impl,
+                                          pool=cfg.pool_impl),
+                              donate_batches=cfg.donate_batches,
+                              **trainer_kw)
         log.log(f"data group: rank {group.rank} of {group.size} on "
-                f"{group.device}; tau={cfg.tau} mode={cfg.mode} "
+                f"{group.device}; trainer {trainer_cls.__name__} "
+                f"(state_sharding="
+                f"{getattr(trainer, 'state_sharding', 'replicated')}); "
+                f"tau={cfg.tau} mode={cfg.mode} "
                 f"local_batch={cfg.local_batch} precision={cfg.precision} "
                 f"lrn={cfg.lrn_impl} pool={cfg.pool_impl}")
         log.log(f"round pipeline: prep thread "
@@ -460,12 +486,16 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
     if ckdir and cfg.resume and ckpt.latest_step(ckdir) is not None:
         flat, start_round, resumed_extra = ckpt.restore_flat(ckdir)
         saved_n = trainer.saved_world(flat, resumed_extra)
+        same_topo = trainer.same_topology(flat, resumed_extra)
         state = trainer.state_from_checkpoint(flat, resumed_extra, policy)
-        if saved_n == n and os.environ.get(RELAUNCHED_ENV) != "1":
+        if same_topo and os.environ.get(RELAUNCHED_ENV) != "1":
             log.log(f"resumed from checkpoint round {start_round}")
         else:
             log.log(f"ELASTIC resume from round {start_round}: {saved_n} "
-                    f"devices (tp=1) -> {n} (tp=1), momentum {policy}")
+                    f"devices (tp={resumed_extra.get('tp', 1)}, layout "
+                    f"{resumed_extra.get('layout', 'replica')}) -> {n} "
+                    f"(tp={trainer.tp}, layout {trainer.state_layout}), "
+                    f"momentum {policy}")
         _seek_stream(source, resumed_extra, log, topo)
 
     # the per-run registry every meter, supervisor and writer below
@@ -1252,8 +1282,15 @@ def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
         return
 
     def persist() -> None:
-        extra: Dict[str, Any] = {"n_devices": group.size, "tp": 1,
+        extra: Dict[str, Any] = {"n_devices": group.size, "tp": trainer.tp,
                                  "publish_t": round(time.time(), 3)}
+        if trainer.state_layout != "replica":
+            # the logical layout, stamped under the JAX keys so a restore
+            # routes between the layouts; the momentum's shape depends on
+            # the state sharding ([n_data] rows or one tree)
+            extra["layout"] = trainer.state_layout
+            extra["state_sharding"] = getattr(trainer, "state_sharding",
+                                              "replicated")
         if stream is not None:
             extra["stream"] = stream
         if anomalous:

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,44 @@ from .quant import QuantConfig, dequantize_weight
 from .spec import Filler, LayerSpec
 
 Params = Dict[str, torch.Tensor]
+
+
+def tp_shards_layer(layer: "LayerSpec", tp_size: int) -> bool:
+    """The tensor-parallel sharding convention (the JAX package's, shared
+    by the forward and the trainers' state): an InnerProduct layer is
+    column-sharded iff tp_size divides its num_output; every other layer
+    is replicated across the model group."""
+    return (tp_size > 1 and layer.type == "InnerProduct"
+            and layer.inner_product.num_output % tp_size == 0)
+
+
+class _GatherColumns(torch.autograd.Function):
+    """The column-parallel InnerProduct's feature gather over the model
+    group: [N, out/tp] on each model rank -> [N, out], blocks in model-rank
+    order. Its backward is the JAX package's transpose of the gather, a
+    reduce-scatter (SUM) of the cotangent: every model rank computes the
+    same downstream loss, so a shard's gradient comes back x tp and a
+    replicated layer's gradient holds only this shard's term x tp, which
+    `ParallelTrainer._fix_tp_grads` turns exact (shards / tp, the rest
+    summed over the model group / tp). A backward that only sliced its own
+    columns would be wrong for two sharded layers in a row: the cotangent
+    reaching the first is then a partial sum."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        n, k = y.shape
+        flat = group.all_gather_flat(y.contiguous())
+        return flat.view(group.size, n, k).permute(1, 0, 2).reshape(
+            n, group.size * k)
+
+    @staticmethod
+    def backward(ctx, g):
+        group = ctx.group
+        n, full = g.shape
+        k = full // group.size
+        blocks = g.reshape(n, group.size, k).permute(1, 0, 2).contiguous()
+        return group.reduce_scatter_sum(blocks).view(n, k), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +124,23 @@ class ApplyCtx:
     quant: serve-side weight-only quantization (model/quant.py) — the
     activation dtype quantized layers dequantize into; consulted only
     when a layer's params carry the (w_q, w_scale) pair.
+    tp_group / tp_size: the model group (`parallel/mesh.py:DataGroup`) of a
+    tensor-parallel run. InnerProduct layers that `tp_shards_layer` names
+    then hold their output rows [m*out/tp, (m+1)*out/tp) of w (out, in)
+    and of b — the JAX package's column shard (in, out/tp) — and gather
+    the feature axis after the product.
     """
 
     ops: OpsImpl = dataclasses.field(default_factory=OpsImpl)
     train: bool = False
     generator: Optional[torch.Generator] = None
     quant: Optional[QuantConfig] = None
+    tp_group: Optional[Any] = None
+    tp_size: int = 1
+
+    def tp_shards(self, layer: LayerSpec) -> bool:
+        return self.tp_group is not None and tp_shards_layer(layer,
+                                                             self.tp_size)
 
     def fold(self, name: str, device: torch.device) -> torch.Generator:
         """A generator on `device` seeded from (the step generator's seed,
@@ -296,6 +345,8 @@ def apply_innerproduct(layer: LayerSpec, params: Params, inputs,
         return (y if b is None else y + b.to(y.dtype),)
     y = F.linear(precision.cast_in(x), precision.cast_in(params["w"]),
                  None if b is None else precision.cast_in(b))
+    if ctx.tp_shards(layer):
+        y = _GatherColumns.apply(y, ctx.tp_group)
     return (y,)
 
 

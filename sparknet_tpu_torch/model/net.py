@@ -15,8 +15,10 @@ blobs are NCHW in channels_last memory; the permutes at the boundary are
 views, not copies.
 
 Weights cross between the packages through `params_from_jax` and
-`params_to_jax`: conv HWIO `(kh, kw, cin/g, O)` <-> OIHW, inner product
-`(in, out)` <-> `(out, in)`. This is the one place that knows both layouts.
+`params_to_jax` (leaf by leaf: `jax_leaf`, `port_leaf`; the dim maps
+`TO_JAX`, `FROM_JAX`): conv HWIO `(kh, kw, cin/g, O)` <-> OIHW, inner
+product `(in, out)` <-> `(out, in)`. This is the one place that knows both
+layouts.
 """
 from __future__ import annotations
 
@@ -144,7 +146,8 @@ class CompiledNet:
               train: bool = False, phase: Optional[str] = None,
               generator: Optional[torch.Generator] = None,
               ops: Optional[OpsImpl] = None,
-              quant: Optional[QuantConfig] = None
+              quant: Optional[QuantConfig] = None,
+              tp_group=None, tp_size: int = 1
               ) -> Dict[str, torch.Tensor]:
         """Run the net. `batch` maps input blob names to NHWC tensors;
         returns every blob produced (inputs excluded), 4-D blobs as NHWC
@@ -154,11 +157,16 @@ class CompiledNet:
         `quant`: serving-side weight-only quantization (model/quant.py);
         `params` may then hold int8 `w_q` + per-channel `w_scale` for the
         parametric layers, which dequantize at use into its activation
-        dtype. Gradients flow to `params` through autograd."""
+        dtype. Gradients flow to `params` through autograd.
+        `tp_group`/`tp_size`: run tensor-parallel over that model group (the
+        JAX package's `tp_axis`/`tp_size`): the InnerProducts
+        `tp_shards_layer` names hold column shards and gather their
+        features (`ApplyCtx`)."""
         precision.apply_backend_flags()
         phase = phase or ("TRAIN" if train else "TEST")
         ctx = ApplyCtx(ops=ops or OpsImpl(), train=train,
-                       generator=generator, quant=quant)
+                       generator=generator, quant=quant,
+                       tp_group=tp_group, tp_size=tp_size)
         blobs: Dict[str, torch.Tensor] = {
             k: (v.permute(0, 3, 1, 2) if v.ndim == 4 else v)
             for k, v in batch.items()}
@@ -174,13 +182,15 @@ class CompiledNet:
                 for k, v in blobs.items() if k in all_tops}
 
     def loss_fn(self, loss_blob: str = "loss",
-                ops: Optional[OpsImpl] = None):
+                ops: Optional[OpsImpl] = None, tp_group=None,
+                tp_size: int = 1):
         """`f(params, batch, generator=None) -> (loss, blobs)`, a TRAIN-phase
         apply for autograd (the JAX package's `loss_fn` for jax.grad)."""
 
         def f(params, batch, generator=None):
             blobs = self.apply(params, batch, train=True,
-                               generator=generator, ops=ops)
+                               generator=generator, ops=ops,
+                               tp_group=tp_group, tp_size=tp_size)
             return blobs[loss_blob], blobs
 
         return f
@@ -191,13 +201,37 @@ class CompiledNet:
 # ---------------------------------------------------------------------------
 
 
+#: a port-layout w leaf's dims in JAX order (conv OIHW -> HWIO, inner
+#: product (out, in) -> (in, out)): JAX dim i is port dim TO_JAX[t][i]
+TO_JAX = {"Convolution": (2, 3, 1, 0), "InnerProduct": (1, 0)}
+#: the inverse: port dim k is JAX dim FROM_JAX[t][k]
+FROM_JAX = {"Convolution": (3, 2, 0, 1), "InnerProduct": (1, 0)}
+
+
+def jax_leaf(layer_type: str, pname: str, t: torch.Tensor) -> torch.Tensor:
+    """A port-layout leaf -> its JAX layout, contiguous; a leading row axis
+    (one more dim than the layout) stays in front."""
+    if pname == "w" and layer_type in TO_JAX:
+        perm = TO_JAX[layer_type]
+        if t.ndim == len(perm) + 1:
+            perm = (0,) + tuple(i + 1 for i in perm)
+        t = t.permute(perm)
+    return t.contiguous()
+
+
+def port_leaf(layer_type: str, pname: str, a) -> torch.Tensor:
+    """A JAX-layout leaf (numpy, or a CPU tensor such as a bfloat16 one) ->
+    a port-layout CPU tensor in its own dtype, contiguous."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+    if pname == "w" and layer_type in FROM_JAX:
+        t = t.permute(FROM_JAX[layer_type])
+    return t.contiguous()
+
+
 def _jax_layout(layer_type: str, pname: str, t: torch.Tensor) -> np.ndarray:
-    a = t.detach().to("cpu", torch.float32).numpy()
-    if pname == "w" and layer_type == "Convolution":
-        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
-    if pname == "w" and layer_type == "InnerProduct":
-        return np.ascontiguousarray(a.T)
-    return a
+    return jax_leaf(layer_type, pname,
+                    t.detach().to("cpu", torch.float32)).numpy()
 
 
 def params_to_jax(net: CompiledNet, params: ParamTree
@@ -253,10 +287,5 @@ def params_from_jax(net: CompiledNet,
             if tuple(a.shape) != shape:
                 raise ValueError(f"{lname}/{pname}: shape {a.shape} != "
                                  f"net {shape} (JAX layout)")
-            t = torch.from_numpy(a)
-            if pname == "w" and types[lname] == "Convolution":
-                t = t.permute(3, 2, 0, 1)
-            elif pname == "w" and types[lname] == "InnerProduct":
-                t = t.t()
-            out[lname][pname] = t.contiguous().to(device)
+            out[lname][pname] = port_leaf(types[lname], pname, a).to(device)
     return out

@@ -15,9 +15,17 @@ several ranks without torchrun (the tests) passes `store_path`, `rank` and
 `machine_topology` places this rank among the machines: the JAX package's
 `host_id_count` (one process per host) in the port's terms.
 
+`make_grid` forms the 2-D (data, model) process grid of a world of
+n_data x tp ranks, one per card: rank r sits at data index r // tp and
+model index r % tp, the JAX package's device order for a ("data", "model")
+mesh. Its data subgroup (the ranks of one model index) averages params;
+its model subgroup (the ranks of one data index) gathers a column-parallel
+InnerProduct's features. At tp = 1 the data subgroup is the world.
+
 `plan_state_shards` is stage 1 of a per-shard checkpoint, the counterpart
-of the JAX package's `fetch_state_shards` for the port's replica layout:
-no gather, each rank holds only the pieces it owns.
+of the JAX package's `fetch_state_shards` for the port's replica layout
+and for the logical ZeRO layout of `parallel/sharded.py`: no gather, each
+rank holds only the pieces it owns.
 """
 from __future__ import annotations
 
@@ -32,10 +40,19 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
+# torch 2.13 names the flat collectives *_single and warns on the older
+# *_into_tensor / *_tensor names, which are all that torch 2.11 has
+_ALL_GATHER_FLAT = (getattr(dist, "all_gather_single", None)
+                    or dist.all_gather_into_tensor)
+_REDUCE_SCATTER_FLAT = (getattr(dist, "reduce_scatter_single", None)
+                        or dist.reduce_scatter_tensor)
+
 
 @dataclasses.dataclass
 class DataGroup:
-    """This process's place on the data axis."""
+    """This process's place on the data axis: the world, or (`pg` set) a
+    subgroup of it, where `rank` and `size` are this process's place in
+    the subgroup."""
 
     rank: int
     size: int
@@ -43,10 +60,12 @@ class DataGroup:
     #: this module formed the process group (and `close` ends it)
     owned: bool = False
     store_path: Optional[str] = None
+    #: the subgroup's process group; None is the default (world) group
+    pg: Any = None
 
     def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place sum over the data axis."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         return t
 
     def all_reduce_mean_(self, t: torch.Tensor) -> torch.Tensor:
@@ -61,13 +80,39 @@ class DataGroup:
                           device=t.device)
         if self.size == 1:
             return out.copy_(t[None])
-        dist.all_gather(list(out.unbind(0)), t.contiguous())
+        dist.all_gather(list(out.unbind(0)), t.contiguous(), group=self.pg)
+        return out
+
+    def all_gather_flat(self, t: torch.Tensor) -> torch.Tensor:
+        """[size * t.numel()]: every rank's flat `t`, concatenated in rank
+        order — one collective."""
+        t = t.reshape(-1)
+        out = torch.empty(self.size * t.numel(), dtype=t.dtype,
+                          device=t.device)
+        if self.size == 1:
+            return out.copy_(t)
+        _ALL_GATHER_FLAT(out, t.contiguous(), group=self.pg)
+        return out
+
+    def reduce_scatter_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """[t.numel() / size]: block `rank` of the sum over the ranks of the
+        flat `t` (packed rank-major) — one collective."""
+        t = t.reshape(-1)
+        if t.numel() % self.size:
+            raise ValueError(f"reduce_scatter of {t.numel()} elements over "
+                             f"{self.size} ranks")
+        out = torch.empty(t.numel() // self.size, dtype=t.dtype,
+                          device=t.device)
+        if self.size == 1:
+            return out.copy_(t)
+        _REDUCE_SCATTER_FLAT(out, t.contiguous(), op=dist.ReduceOp.SUM,
+                             group=self.pg)
         return out
 
     def barrier(self) -> None:
         """Every rank waits here for the others (a world of one returns)."""
         if self.size > 1:
-            dist.barrier()
+            dist.barrier(group=self.pg)
 
     def close(self) -> None:
         if self.owned and dist.is_initialized():
@@ -120,6 +165,51 @@ def init_data_group(device=None, *, workdir: Optional[str] = None,
     return DataGroup(rank, world, dev, owned=True, store_path=own_store)
 
 
+@dataclasses.dataclass
+class ProcessGrid:
+    """The (data, model) grid of a world of n_data x tp ranks (module
+    docstring). `data` holds the ranks of this rank's model index (the
+    param average and the ZeRO collectives), `model` those of its data
+    index (the column-parallel gather; None at tp = 1)."""
+
+    world: DataGroup
+    tp: int
+    data: DataGroup
+    model: Optional[DataGroup]
+
+    @property
+    def n_data(self) -> int:
+        return self.data.size
+
+
+def make_grid(group: DataGroup, tp: int = 1) -> ProcessGrid:
+    """The process grid of `group` (the world) at `tp` model ranks per data
+    group. Above tp = 1 it forms a data subgroup for each model index,
+    then a model subgroup for each data index, in that order on every
+    rank (`dist.new_group` is collective over the world: ranks that
+    formed them in another order would hang). A collective: every rank
+    calls it."""
+    if tp < 1 or group.size % tp:
+        raise ValueError(f"tp={tp} does not divide the world of "
+                         f"{group.size} ranks")
+    if tp == 1:
+        return ProcessGrid(group, 1, group, None)
+    n_data = group.size // tp
+    d, m = divmod(group.rank, tp)
+    data_pg = model_pg = None
+    for j in range(tp):
+        pg = dist.new_group([i * tp + j for i in range(n_data)])
+        if j == m:
+            data_pg = pg
+    for i in range(n_data):
+        pg = dist.new_group([i * tp + j for j in range(tp)])
+        if i == d:
+            model_pg = pg
+    return ProcessGrid(group, tp,
+                       DataGroup(d, n_data, group.device, pg=data_pg),
+                       DataGroup(m, tp, group.device, pg=model_pg))
+
+
 def machine_topology(group: Optional[DataGroup] = None
                      ) -> Tuple[int, int, int, int]:
     """(machine, n_machines, local_rank, local_size) of this rank — the
@@ -163,7 +253,9 @@ def machine_topology(group: Optional[DataGroup] = None
 
 def plan_state_shards(rows: Optional[Mapping[str, Any]] = None,
                       replicated: Optional[Mapping[str, Any]] = None, *,
-                      rank: int, world: int) -> Dict[str, Any]:
+                      rank: int, world: int,
+                      zero: Optional[Mapping[str, Tuple[tuple, int, Any]]]
+                      = None) -> Dict[str, Any]:
     """The piece plan of a per-shard checkpoint: the snapshot dict the
     JAX package's `fetch_state_shards` returns for the same state on a
     `world`-device mesh, with file f owned by rank f:
@@ -180,6 +272,10 @@ def plan_state_shards(rows: Optional[Mapping[str, Any]] = None,
       sizes differ by at most one, chunk j in file j; a scalar, an empty
       leaf or a world of one is one piece in file 0 — the JAX plan of a
       fully replicated leaf.
+    - `zero`: {key: (global shape, dim, this rank's piece)} of a leaf
+      split evenly along `dim` over the ranks (the logical ZeRO layout):
+      file f holds block f at offset f * shape[dim] / world along `dim` —
+      the JAX plan of a leaf sharded over the data axis on that dim.
 
     This rank's pieces carry their arrays; the others' carry None. No
     collective: every rank knows the whole plan."""
@@ -216,6 +312,19 @@ def plan_state_shards(rows: Optional[Mapping[str, Any]] = None,
                 lo += size
         leaves[key] = {"shape": shape, "dtype": dtype_of(full),
                        "pieces": pieces}
+    for key, (shape, dim, piece) in (zero or {}).items():
+        shape = tuple(shape)
+        size = shape[dim] // world
+        pshape = shape[:dim] + (size,) + shape[dim + 1:]
+        if tuple(piece.shape) != pshape:
+            raise ValueError(f"{key}: a piece of {shape} split on dim {dim} "
+                             f"over {world} ranks is {pshape}, got "
+                             f"{tuple(piece.shape)}")
+        leaves[key] = {"shape": shape, "dtype": dtype_of(piece),
+                       "pieces": [(f, tuple(f * size if i == dim else 0
+                                            for i in range(len(shape))),
+                                   pshape, piece if f == rank else None)
+                                  for f in range(world)]}
     return {"n_shards": int(world), "owners": {f: f for f in range(world)},
             "process_index": int(rank), "process_count": int(world),
             "leaves": leaves}

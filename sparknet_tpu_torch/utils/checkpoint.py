@@ -58,8 +58,9 @@ manifest loader fetches every shard in parallel, checks its digest and
 reassembles the same flat map a monolithic step of the same state
 gives, bit for bit.
 
-A step of the JAX package's logical (NamedSharding) layout restores to
-its flat map here too; the port's trainer refuses it (ROADMAP A11).
+A step of the logical layout (the JAX package's NamedSharding trainer,
+the port's `parallel/sharded.py`) restores to its flat map here too, in
+either file layout; the trainers' `adapt_state` reads it.
 """
 from __future__ import annotations
 

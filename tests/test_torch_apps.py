@@ -1,6 +1,7 @@
 """The port's training entry points: the CIFAR app's command line, `train()`
 against the JAX package's `train()`, the settings the port refuses, and
-the ones it took up since it refused them.
+the ones it took up since it refused them (the sharded trainer's since
+ROADMAP A11).
 
 `cifar.write_synthetic` makes the CIFAR-10 binary files both apps read.
 The two `train()`s get the same data and the same config (n_devices = 1
@@ -99,19 +100,36 @@ def test_train_matches_the_jax_train(cifar_dir, tmp_path, monkeypatch):
         [x["test_accuracy"] for x in want if "test_accuracy" in x]
 
 
-REFUSED = {
+#: settings the port refused until the sharded trainer was ported: each
+#: now trains (ROADMAP A11), and a ZeRO state sharding without the named
+#: trainer raises ValueError, as the JAX loop's `resolve_trainer_impl` does
+PORTED = {
     "trainer_impl": dict(trainer_impl="named"),
     "state_sharding": dict(state_sharding="momentum"),
 }
 
 
-@pytest.mark.parametrize("what", sorted(REFUSED))
+@pytest.mark.parametrize("what", sorted(PORTED))
 def test_unported_settings_that_change_results_raise(what, tmp_path):
-    cfg = RunConfig(workdir=str(tmp_path), **REFUSED[what])
-    ds = ArrayDataset({"data": torch.zeros(4, 3, 32, 32).numpy()})
-    with pytest.raises(NotImplementedError, match=what.split("=")[0]):
-        train(cfg, zoo.cifar10_quick(batch=2), ds, device="cpu",
-              logger=Logger(echo=False))
+    """Kept under its name from when these settings were refused: they
+    train now (ROADMAP A11), and a ZeRO state sharding without the named
+    trainer raises ValueError, as the JAX loop does."""
+    import numpy as np
+    r = np.random.default_rng(0)
+    ds = ArrayDataset({
+        "data": r.standard_normal((8, 3, 32, 32)).astype(np.float32),
+        "label": r.integers(0, 10, (8, 1)).astype(np.int32)})
+    kw = dict(workdir=str(tmp_path), tau=1, local_batch=2, max_rounds=2,
+              eval_every=0, **PORTED[what])
+    if kw.get("trainer_impl") != "named":
+        with pytest.raises(ValueError, match="trainer_impl='named'"):
+            train(RunConfig(**kw), zoo.cifar10_quick(batch=2), ds,
+                  device="cpu", logger=Logger(echo=False))
+        assert not torch.distributed.is_initialized()
+        kw["trainer_impl"] = "named"
+    state = train(RunConfig(**kw), zoo.cifar10_quick(batch=2), ds,
+                  device="cpu", logger=Logger(echo=False))
+    assert state.it == 2
     assert not torch.distributed.is_initialized()
 
 

@@ -339,8 +339,9 @@ def test_jax_step_loads_into_each_rank_exactly(jax_steps, world):
 def test_a_checkpoint_of_another_topology_names_elastic_resize(jax_steps):
     """Another world size takes the elastic resize (`adapt_state`): the
     params of row 0 exactly, every rank the same momentum
-    reconstruction. Another tp or layout still raises, naming the
-    trainers that are not ported (ROADMAP A11)."""
+    reconstruction. Another tp or layout routes through `adapt_state` too
+    (ROADMAP A11, ported): the step's leading axis read as the logical
+    layout's momentum rows, and a tp = 2 step's rows as column shards."""
     flat, _, extra = ckpt.restore_flat(jax_steps[2])
     tr = _trainer(0, 1, batch=4)
     st = tr.state_from_checkpoint(flat, extra)
@@ -353,10 +354,14 @@ def test_a_checkpoint_of_another_topology_names_elastic_resize(jax_steps):
             np.testing.assert_array_equal(
                 conv["momentum"][l][p], reduce_momentum_rows(
                     flat[f"momentum/{l}/{p}"], "norm_rescale"))
-    with pytest.raises(ValueError, match="A11"):
+    # a logical step's params have no leading axis: this replica step
+    # read as one is refused by shape, not by layout
+    with pytest.raises(ValueError, match="shape"):
         _trainer(0, 2, batch=4).state_from_checkpoint(
             flat, dict(extra, layout="logical"))
-    with pytest.raises(ValueError, match="A11"):
+    # as a tp = 2 step: cifar10_quick's ip1 (64) and ip2 (10) are column
+    # shards, so their logical width is twice the rows' — refused by shape
+    with pytest.raises(ValueError, match="shape"):
         _trainer(0, 1, batch=4).state_from_checkpoint(flat,
                                                       dict(extra, tp=2))
     with pytest.raises(ValueError, match="velocity_dtype"):

@@ -393,15 +393,42 @@ def test_reduce_momentum_rows_is_the_jax_packages():
 
 
 def test_tp_and_logical_steps_still_raise(jax_steps4):
+    """ROADMAP A11 (ported; the name is kept from when these steps were
+    refused): a step of another tp or layout restores
+    through `adapt_state` as the JAX ParallelTrainer's does — here a tp = 2
+    step of 4 devices made from the TINY_MLP step (device 2d + m holds
+    column shard m of data group d's row) — and this tp = 1 step read as
+    tp = 2 or as the logical layout is refused by its shapes, as is an
+    unknown policy or layout."""
     flat, _, extra = ckpt.restore_flat(jax_steps4["tiny_mlp"])
     tr = _port_trainer("tiny_mlp", 0, 2)
     for bad in (dict(extra, tp=2), dict(extra, layout="logical"),
-                dict(extra, state_sharding="momentum")):
-        with pytest.raises(ValueError, match="A11"):
+                dict(extra, layout="logical", state_sharding="momentum")):
+        with pytest.raises(ValueError, match="shape"):
             tr.state_from_checkpoint(flat, bad)
-    for kw in (dict(old_layout="logical"), dict(old_tp=2)):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tr.adapt_state(flat, **kw)
+    tp2 = {"it": np.asarray(flat["it"])}
+    for key, a in flat.items():
+        if key == "it":
+            continue
+        axis = 1 if key.endswith("/w") else 0     # both layers are sharded
+        tp2[key] = np.stack([np.split(a[d], 2, axis=axis)[m]
+                             for d in range(2) for m in range(2)])
+    jnet = JaxCompiledNet.compile(jax_net_from_prototxt(TINY_MLP))
+    want = JaxTrainer(jnet, JaxSolverConfig(), make_mesh(2)).adapt_state(
+        tp2, old_tp=2)
+    for st in (tr.state_from_checkpoint(tp2, dict(extra, tp=2)),
+               tr.adapt_state(tp2, old_tp=2)):
+        for kind in ("params", "momentum"):
+            got = params_to_jax(tr.net, getattr(st, kind))
+            for l, lp in getattr(want, kind).items():
+                for p, a in lp.items():
+                    np.testing.assert_array_equal(got[l][p],
+                                                  np.asarray(a)[0])
+                    if kind == "params":
+                        np.testing.assert_array_equal(
+                            got[l][p], flat[f"params/{l}/{p}"][0])
+    with pytest.raises(ValueError, match="layout"):
+        tr.adapt_state(flat, old_layout="rows")
     with pytest.raises(ValueError, match="momentum_policy"):
         tr.adapt_state(flat, momentum_policy="mean")
 

@@ -209,8 +209,11 @@ def test_unported_trainer_options_raise(tmp_path):
         with pytest.raises(ValueError, match="local_sgd"):
             ParallelTrainer(net, SolverConfig(), g, tau=1, mode="sync_sgd",
                             elastic_tau=True)
-        with pytest.raises(NotImplementedError, match="tensor parallel"):
+        # tensor parallelism is ported (test_torch_tp.py): a tp that does
+        # not divide the world is refused
+        with pytest.raises(ValueError, match="does not divide"):
             ParallelTrainer(net, SolverConfig(), g, tp=2)
+        assert ParallelTrainer(net, SolverConfig(), g, tp=1).tp == 1
         # a port process cannot change its world: a membership change
         # relaunches the run instead of resizing the trainer
         with pytest.raises(NotImplementedError, match="relaunch"):
