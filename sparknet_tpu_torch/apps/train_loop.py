@@ -334,7 +334,7 @@ def train(cfg: RunConfig, spec: NetSpec, train_ds: ArrayDataset,
         log.log(f"data group: rank {group.rank} of {group.size} on "
                 f"{group.device}; trainer {trainer_cls.__name__} "
                 f"(state_sharding="
-                f"{getattr(trainer, 'state_sharding', 'replicated')}); "
+                f"{trainer.state_sharding}); "
                 f"tau={cfg.tau} mode={cfg.mode} "
                 f"local_batch={cfg.local_batch} precision={cfg.precision} "
                 f"lrn={cfg.lrn_impl} pool={cfg.pool_impl}")
@@ -1289,8 +1289,7 @@ def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
             # routes between the layouts; the momentum's shape depends on
             # the state sharding ([n_data] rows or one tree)
             extra["layout"] = trainer.state_layout
-            extra["state_sharding"] = getattr(trainer, "state_sharding",
-                                              "replicated")
+            extra["state_sharding"] = trainer.state_sharding
         if stream is not None:
             extra["stream"] = stream
         if anomalous:

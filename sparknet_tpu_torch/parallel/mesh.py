@@ -40,13 +40,6 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-# torch 2.13 names the flat collectives *_single and warns on the older
-# *_into_tensor / *_tensor names, which are all that torch 2.11 has
-_ALL_GATHER_FLAT = (getattr(dist, "all_gather_single", None)
-                    or dist.all_gather_into_tensor)
-_REDUCE_SCATTER_FLAT = (getattr(dist, "reduce_scatter_single", None)
-                        or dist.reduce_scatter_tensor)
-
 
 @dataclasses.dataclass
 class DataGroup:
@@ -91,7 +84,7 @@ class DataGroup:
                           device=t.device)
         if self.size == 1:
             return out.copy_(t)
-        _ALL_GATHER_FLAT(out, t.contiguous(), group=self.pg)
+        dist.all_gather_into_tensor(out, t.contiguous(), group=self.pg)
         return out
 
     def reduce_scatter_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -105,8 +98,8 @@ class DataGroup:
                           device=t.device)
         if self.size == 1:
             return out.copy_(t)
-        _REDUCE_SCATTER_FLAT(out, t.contiguous(), op=dist.ReduceOp.SUM,
-                             group=self.pg)
+        dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM,
+                                   group=self.pg)
         return out
 
     def barrier(self) -> None:

@@ -59,7 +59,8 @@ from ..model.net import (FROM_JAX, TO_JAX, CompiledNet, ParamTree,
 from ..solver import SolverConfig
 from .mesh import DataGroup, plan_state_shards
 from .trainer import (ParallelTrainer, TrainState, _first, _flat_tree,
-                      _host, concat_rows, reduce_rows, split_flat)
+                      _host, first_row, from_replica_rows, reduce_rows,
+                      split_flat)
 
 STATE_SHARDINGS = ("replicated", "momentum", "full")
 
@@ -348,23 +349,21 @@ class ShardedTrainer(ParallelTrainer):
                 momentum = self._jax_host(self.logical_momentum(state))
             return {"params": params, "momentum": momentum, "it": it}
         rows = super().checkpoint_tree(state)
-        params: Dict[str, Dict[str, Any]] = {}
-        momentum: Dict[str, Dict[str, Any]] = {}
-        tp = self.tp
-        for l, lp in rows["params"].items():
-            for p, a in lp.items():
-                m = rows["momentum"][l][p]
-                if l in self._tp_layers:
-                    axis = 1 if p == "w" else 0
-                    params.setdefault(l, {})[p] = np.concatenate(
-                        [a[j] for j in range(tp)], axis=axis)
-                    groups = m.reshape((-1, tp) + tuple(m.shape[1:]))
-                    momentum.setdefault(l, {})[p] = concat_rows(
-                        [groups[:, j] for j in range(tp)], axis + 1)
-                else:
-                    params.setdefault(l, {})[p] = np.array(a[0])
-                    momentum.setdefault(l, {})[p] = m[::tp]
-        return {"params": params, "momentum": momentum, "it": it}
+
+        def one_per_data_group(r):
+            return r[::len(r) // self.n_data]
+
+        def logical(kind, reduce):
+            return {l: {p: from_replica_rows(x, self.tp,
+                                             l in self._tp_layers, p, reduce)
+                        for p, x in lp.items()}
+                    for l, lp in rows[kind].items()}
+
+        params = {l: {p: np.array(a) for p, a in lp.items()}
+                  for l, lp in logical("params", first_row).items()}
+        return {"params": params,
+                "momentum": logical("momentum", one_per_data_group),
+                "it": it}
 
     def checkpoint_shards(self, state: TrainState) -> Dict[str, Any]:
         """Stage 1 of a per-shard save in the logical layout, with no
@@ -422,21 +421,17 @@ class ShardedTrainer(ParallelTrainer):
         if old_layout == "replica":
             old_tp_layers = {l.name for l in self.net.spec.layers
                              if tp_shards_layer(l, old_tp)}
-            for lname, lp in params.items():
-                for pname, arr in lp.items():
-                    axis = 1 if pname == "w" else 0
-                    if lname in old_tp_layers:
-                        lp[pname] = np.concatenate(
-                            [arr[j] for j in range(old_tp)], axis=axis)
-                        m = momentum.get(lname, {}).get(pname)
-                        if m is not None:
-                            groups = m.reshape((-1, old_tp)
-                                               + tuple(m.shape[1:]))
-                            momentum[lname][pname] = concat_rows(
-                                [groups[:, j] for j in range(old_tp)],
-                                axis + 1)
-                    else:
-                        lp[pname] = arr[0]
+
+            def logical(tree, reduce):
+                return {l: {p: from_replica_rows(x, old_tp,
+                                                 l in old_tp_layers, p,
+                                                 reduce)
+                            for p, x in lp.items()}
+                        for l, lp in tree.items()}
+
+            # a sharded layer's momentum: one row per old data group
+            params = logical(params, first_row)
+            momentum = logical(momentum, lambda rows: rows)
         if not momentum:
             p, _ = self._port_trees(params, None, own=False)
             return self.state_from_params(p, it=_first(it))

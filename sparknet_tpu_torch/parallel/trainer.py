@@ -232,6 +232,9 @@ class ParallelTrainer:
     #: (the sharded trainer's is "logical"), stamped into `extra["layout"]`
     #: by the train loop when it is not this one
     state_layout = "replica"
+    #: the ZeRO split of the state at rest (the sharded trainer's knob;
+    #: every rank here holds all of its own state)
+    state_sharding = "replicated"
 
     def _tp_sharded_layers(self) -> set:
         """Layer names whose params are column-sharded over the model group
@@ -398,7 +401,7 @@ class ParallelTrainer:
                 and int(extra.get("tp", 1)) == self.tp
                 and extra.get("layout", "replica") == self.state_layout
                 and extra.get("state_sharding", "replicated")
-                == getattr(self, "state_sharding", "replicated"))
+                == self.state_sharding)
 
     def state_from_checkpoint(self, flat: Mapping[str, Any],
                               extra: Optional[Mapping[str, Any]] = None,
@@ -468,21 +471,16 @@ class ParallelTrainer:
         old_tp_layers = {l.name for l in self.net.spec.layers
                          if tp_shards_layer(l, old_tp)}
 
-        def reassemble(kind, lname, pname, x):
-            reduce = ((lambda rows: rows[0]) if kind == "params"
-                      else (lambda rows: reduce_rows(rows, momentum_policy)))
-            if lname in old_tp_layers:
-                return concat_rows([reduce(x[j::old_tp])
-                                    for j in range(old_tp)],
-                                   1 if pname == "w" else 0)
-            return reduce(x)
+        def reassemble(tree, reduce):
+            return {l: {p: from_replica_rows(x, old_tp, l in old_tp_layers,
+                                             p, reduce)
+                        for p, x in lp.items()} for l, lp in tree.items()}
 
         return self._state_from_jax(
-            {l: {p: reassemble("params", l, p, a) for p, a in lp.items()}
-             for l, lp in params.items()},
-            {l: {p: reassemble("momentum", l, p, m) for p, m in lp.items()}
-             for l, lp in momentum.items()} or None,
-            int(it_rows[0]), own=False)
+            reassemble(params, first_row),
+            reassemble(momentum,
+                       lambda rows: reduce_rows(rows, momentum_policy))
+            or None, int(it_rows[0]), own=False)
 
     def _jax_shapes(self, own: bool) -> Dict[str, Dict[str, tuple]]:
         """The JAX-layout shape of each leaf: logical, or (`own`) this
@@ -915,6 +913,28 @@ def split_flat(flat: Mapping[str, Any]) -> Tuple[Dict, Dict, Any]:
 
 def _first(it: Any) -> int:
     return int(np.asarray(it).reshape(-1)[0])
+
+
+def first_row(rows: Any) -> Any:
+    """Row 0: a replica step's params are data group 0's copy (after the
+    round's average every data group holds the same model)."""
+    return rows[0]
+
+
+def from_replica_rows(x: Any, old_tp: int, sharded: bool, pname: str,
+                      reduce) -> Any:
+    """One leaf of a replica-layout step — [world, ...] rows, rank r at
+    data index r // old_tp and model index r % old_tp — in the logical
+    layout. A column-sharded layer (`sharded`): `reduce` takes the rows
+    of each old model index, and the results are put back together along
+    the param's column axis (past the row axes `reduce` keeps). Any other
+    layer: `reduce` takes all the rows. Both trainers' `adapt_state` and
+    the logical `checkpoint_tree` read a replica step through it."""
+    if not sharded:
+        return reduce(x)
+    parts = [reduce(x[j::old_tp]) for j in range(old_tp)]
+    return concat_rows(parts, (1 if pname == "w" else 0)
+                       + parts[0].ndim - x.ndim + 1)
 
 
 def reduce_rows(rows: Any, policy: str) -> Any:

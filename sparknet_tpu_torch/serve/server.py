@@ -53,12 +53,12 @@ steps the fleet rollout duty approved for `replica_name`
 (`fleet/rollout.py`).
 
 Compile events: each bucket's first forward is one "serve_bucket" event,
-as in the JAX server. On the card, `start` builds the route's kernels
-(`serve_kernels`) before the install canary's forward would, and that
-build joins the server's first "serve_bucket" event (its seconds and its
-cache verdict): a child whose kernel-build directory is cold records a
-`cache_hit="false"` event, a warm one none, and the count of events is
-the JAX server's.
+as in the JAX server. On the card the install canary's forward, which
+`start` runs, is the first to launch the route's kernels; `start` tracks
+it as a compile region and folds it into the server's first
+"serve_bucket" event (its seconds and its cache verdict): a child whose
+kernel-build directory is cold records a `cache_hit="false"` event, a
+warm one none, and the count of events is the JAX server's.
 
 Not ported: raw-pixel preprocessing at the door (the JAX server's
 `preprocessor`): requests carry the net's own input schema.
@@ -308,8 +308,9 @@ class InferenceServer:
             "wall time of each bucket's first forward",
             labels=("model",), buckets=FIRST_FORWARD_BUCKETS)
         self._compiled_buckets: set = set()
-        #: (seconds, cache verdict) of the kernel build `start` ran, until
-        #: the first "serve_bucket" event takes it
+        #: (seconds, cache verdict) of the install canary's region when it
+        #: reached the kernel builder, until the first "serve_bucket"
+        #: event takes it
         self._startup_build: Optional[Tuple[float, bool]] = None
         self.batcher = DynamicBatcher(cfg.max_batch,
                                       max_wait_s=cfg.max_wait_ms / 1e3,
@@ -431,17 +432,14 @@ class InferenceServer:
         ModelRouter's shared pool drives `serve_tick` under
         `lane_lock`)."""
         assert self._worker is None and not self._running, "already started"
-        kernels = self.serve_kernels()
-        if kernels:
-            # the install canary's forward would build them outside any
-            # compile site; build here and fold the build into the first
-            # "serve_bucket" event
-            from ..ops import _build
-            t0 = time.perf_counter()
-            with track_compiles() as tc:
-                _build.build_all(kernels)
+        # the install canary's forward is the first to launch the route's
+        # kernels: when it reached the kernel builder, its region joins
+        # the first "serve_bucket" event
+        t0 = time.perf_counter()
+        with track_compiles() as tc:
+            self.manager.load_initial(weights)
+        if tc.builds or tc.cache_hits or tc.cache_misses:
             self._startup_build = (time.perf_counter() - t0, tc.cache_hit)
-        self.manager.load_initial(weights)
         self._running = True
         self._last_tick = time.monotonic()
         if thread:
@@ -454,17 +452,6 @@ class InferenceServer:
         if self.cfg.history:
             self._start_history()
         return self
-
-    def serve_kernels(self) -> List[str]:
-        """The hand-written kernels this server's forwards launch: lrn_fwd
-        where the net has an LRN and runs on the card's "auto" route."""
-        ops = getattr(self.net, "ops", None)
-        if self.net.device.type != "cuda" or (
-                ops is not None and ops.lrn != "auto"):
-            return []
-        return (["lrn_fwd"] if any(l.type == "LRN"
-                                   for l in self.net.net.spec.layers)
-                else [])
 
     def _start_history(self) -> None:
         """The SLO ledger: history sampler (+ alerter when an objective
@@ -776,7 +763,7 @@ class InferenceServer:
                 self._compiled_buckets.add(bucket)
                 seconds, hit = t_fwd1 - t_fwd0, tc.cache_hit
                 if self._startup_build is not None:
-                    # the kernels `start` built for this server's route
+                    # the kernels the install canary built or loaded
                     seconds += self._startup_build[0]
                     hit = hit and self._startup_build[1]
                     self._startup_build = None

@@ -277,38 +277,24 @@ def test_both_servers_record_one_serve_bucket_event_per_bucket():
     assert got["port"]["cache_misses"] == 0
 
 
-def test_the_server_s_route_kernels():
-    """`serve_kernels`: lrn_fwd for a net with an LRN on the card's "auto"
-    route, nothing on the CPU, for the plain route or without an LRN."""
-    from sparknet_tpu_torch.model.layers import OpsImpl
-    cfg = ServeConfig(max_batch=1, buckets=(1,), metrics_every_batches=0)
-    nets = {"caffenet": TorchNet(zoo.caffenet(batch=1, crop=67,
-                                              n_classes=4), device="cpu"),
-            "lenet": TorchNet(zoo.lenet(batch=1), device="cpu")}
-    srv = {k: InferenceServer(n, cfg) for k, n in nets.items()}
-    assert srv["caffenet"].serve_kernels() == []      # the CPU
-    for n in nets.values():
-        n.device = torch.device("cuda")               # never forwarded
-    assert srv["caffenet"].serve_kernels() == ["lrn_fwd"]
-    assert srv["lenet"].serve_kernels() == []
-    nets["caffenet"].ops = OpsImpl(lrn="plain")
-    assert srv["caffenet"].serve_kernels() == []
+class _KernelNet(TorchNet):
+    """A CPU net whose every forward goes through the kernel builder for
+    lrn_fwd, as the card's LRN route does on its first launch (the CPU
+    forwards themselves launch no kernel)."""
+
+    def forward(self, *args, **kwargs):
+        _build.build_all(["lrn_fwd"])
+        return super().forward(*args, **kwargs)
 
 
-def test_a_cold_server_records_its_kernel_build_and_a_warm_one_none(
-        tmp_path, monkeypatch, fresh_cache, isolated_records):
-    """A server with its install canary on builds its route's kernels in
-    `start`, before the canary's forward; the build joins its first
-    "serve_bucket" event. On a cold kernel-build directory (the stub nvcc
-    runs) that event reads cache_hit="false"; a second server on the now
-    warm directory records no "false" event; both record one event per
-    bucket, as before. The CPU forwards launch no kernel, so the route is
-    given to the server here."""
-    monkeypatch.setenv("CUDA_HOME", str(_stub_cuda_home(tmp_path / "cuda",
-                                                        "1.0")))
-    compile_cache.init_compile_cache(str(tmp_path / "cache"))
-    monkeypatch.setattr(InferenceServer, "serve_kernels",
-                        lambda self: ["lrn_fwd"])
+def _serve_cold_then_warm(canary):
+    """The "serve_bucket" events and this thread's nvcc runs of a server
+    that installs a checkpoint's weights at `start` (where the canary, when
+    on, runs) on a cold kernel-build directory, then of one on the warm
+    directory: {"cold" | "warm": (events, builds)}."""
+    jnet = JaxNet(jax_zoo.lenet(batch=4), seed=7)
+    flat = {f"{lname}/{pname}": np.asarray(v)
+            for lname, lp in jnet.params.items() for pname, v in lp.items()}
     r = np.random.default_rng(5)
     reqs = [{"data": r.standard_normal((28, 28, 1)).astype(np.float32)}
             for _ in range(4)]
@@ -317,18 +303,69 @@ def test_a_cold_server_records_its_kernel_build_and_a_warm_one_none(
         before = len(port_device._events)
         cfg = ServeConfig(max_batch=4, max_wait_ms=500.0, buckets=(1, 4),
                           outputs=("prob",), metrics_every_batches=0,
-                          canary=True)
+                          canary=canary)
+        srv = InferenceServer(_KernelNet(zoo.lenet(batch=4), device="cpu"),
+                              cfg)
+        assert (srv.manager.canary_batch is not None) == canary
         with track_compiles() as tc:
-            with InferenceServer(TorchNet(zoo.lenet(batch=4), device="cpu"),
-                                 cfg) as srv:
-                assert srv.manager.canary_batch is not None
+            srv.start(weights=flat)
+            try:
                 srv.infer(reqs[0])                       # bucket 1
                 for f in [srv.submit(x) for x in reqs]:  # bucket 4
                     f.result(timeout=60)
+            finally:
+                srv.stop()
         got[child] = ([e for e in port_device._events[before:]
                        if e[0] == "serve_bucket"], tc.builds)
+    return got
+
+
+def test_a_canary_that_reaches_no_kernel_joins_no_event(fresh_cache,
+                                                        isolated_records):
+    """On the CPU the install canary's forward launches no kernel, so
+    `start` keeps nothing for the first "serve_bucket" event, whose
+    seconds are then its own forward's."""
+    cfg = ServeConfig(max_batch=1, buckets=(1,), metrics_every_batches=0,
+                      canary=True)
+    with InferenceServer(TorchNet(zoo.lenet(batch=1), device="cpu"),
+                         cfg) as srv:
+        assert srv.manager.canary_batch is not None
+        assert srv._startup_build is None
+        srv.infer({"data": np.zeros((28, 28, 1), np.float32)})
+    assert [e[2] for e in port_device._events
+            if e[0] == "serve_bucket"] == [True]
+
+
+def test_a_cold_server_records_its_kernel_build_and_a_warm_one_none(
+        tmp_path, monkeypatch, fresh_cache, isolated_records):
+    """A server with its install canary on: the canary's forward, which
+    `start` runs, is the first to reach the kernel builder, and `start`
+    folds that region into the server's first "serve_bucket" event. On a
+    cold kernel-build directory (the stub nvcc runs, on `start`'s thread)
+    that event reads cache_hit="false"; a second server on the now warm
+    directory records no "false" event; both record one event per bucket,
+    as before."""
+    monkeypatch.setenv("CUDA_HOME", str(_stub_cuda_home(tmp_path / "cuda",
+                                                        "1.0")))
+    compile_cache.init_compile_cache(str(tmp_path / "cache"))
+    got = _serve_cold_then_warm(canary=True)
     (cold, cold_builds), (warm, warm_builds) = got["cold"], got["warm"]
     assert (cold_builds, warm_builds) == (1, 0)
     assert len(cold) == len(warm) == 2
     assert cold[0][2] is False and cold[1][2] is True
+    assert [e[2] for e in warm] == [True, True]
+
+
+def test_without_a_canary_the_first_bucket_records_the_build(
+        tmp_path, monkeypatch, fresh_cache, isolated_records):
+    """With the canary off, the first bucket's forward builds the kernel
+    on the serve worker's thread, inside its own compile region: the same
+    events as with the canary on."""
+    monkeypatch.setenv("CUDA_HOME", str(_stub_cuda_home(tmp_path / "cuda",
+                                                        "1.0")))
+    compile_cache.init_compile_cache(str(tmp_path / "cache"))
+    got = _serve_cold_then_warm(canary=False)
+    (cold, cold_builds), (warm, warm_builds) = got["cold"], got["warm"]
+    assert (cold_builds, warm_builds) == (0, 0)      # not this thread's
+    assert [e[2] for e in cold] == [False, True]
     assert [e[2] for e in warm] == [True, True]

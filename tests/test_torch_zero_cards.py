@@ -7,7 +7,8 @@ a machine with four: `python -m pytest -m gpu tests/test_torch_zero_cards.py
 -q -s`.
 
 `card_runs(..., device="cpu")` rehearses the same cases on gloo CPU ranks
-at a small size.
+at a small size: `PYTHONPATH=. python tests/test_torch_zero_cards.py` runs
+it for 2 and 4 ranks.
 """
 import dataclasses
 
@@ -133,3 +134,17 @@ def test_nccl_zero_and_tp_on_caffenet(tmp_path, world):
     if not torch.cuda.is_available() or torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} CUDA cards")
     card_runs(tmp_path, world, **CARD_NET)
+
+
+if __name__ == "__main__":
+    # the rehearsal on gloo CPU ranks, which needs no card:
+    # PYTHONPATH=. python tests/test_torch_zero_cards.py
+    import pathlib
+    import tempfile
+
+    for n in (2, 4):
+        with tempfile.TemporaryDirectory() as d:
+            card_runs(pathlib.Path(d), n, device="cpu", crop=67,
+                      n_classes=16)
+        print(f"rehearsal: {n} gloo ranks passed (crop 67, 16 classes; "
+              f"torch {torch.__version__})", flush=True)
