@@ -7,8 +7,10 @@ hot-reloads a training step under traffic, with per-shard checkpoints, a
 host trace, the profiler and the relaunch supervisor, behind a router
 with a remote replica over the binary wire and shared memory, as a
 fleet that grows, rolls out, heals and shrinks itself on its SLO, and as
-a bulk-inference job over two replicas that share a warm-up cache, and
-with ZeRO state sharding and the logical checkpoint layout?
+a bulk-inference job over two replicas that share a warm-up cache,
+with ZeRO state sharding and the logical checkpoint layout, and does it
+train and serve a serialized AlexNet graph (the second backend) and serve
+CaffeNet from raw pixels?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -367,8 +369,34 @@ Phases, in order; any failure exits non-zero before the result line:
    at-rest state, the FLOPs an image from `utils/flops.py`, and an MFU
    line for phase 4's and each of this phase's warm rounds against the
    card's dense bf16 peak, with the card's name and power limit.
-15. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
-   12's and 13's launches and forwards per process, every row phase
+15. The graph backend and the raw-pixel door, float32, cuDNN's
+   deterministic algorithms:
+   - (a) `build_alexnet_graph(batch=256, n_classes=1000)` (227x227x3,
+     in-graph Momentum 0.9) through `apps.graph_common.train_graph` (the
+     port's `run_loop` over a `GraphTrainer`) in a world of one, τ = 5,
+     3 rounds, on seeded int8 NHWC images: every loss and health scalar
+     finite, nonfinite 0, the variables finite; 2 rounds saved and a
+     second run resumed to round 3 is `torch.equal` (every variable and
+     slot) to the uninterrupted run; one `GraphTrainer.train_round` is
+     `torch.equal` to 5 `GraphNet.step` calls on the same batches (a
+     world of one averages to itself); `set_weights` leaves every slot
+     `torch.equal`. Prints the warm rounds' ms and img/s.
+   - (b) the trained graph as JSON (its baked initial values dropped)
+     plus a weights npz, built by `serve.app.build_net(graph=...)` as
+     `serve.app --graph g.json --weights w.npz` builds it, behind the
+     port's InferenceServer with buckets (1, 8, 64, 128), outputs
+     ("prob",): 128 queued requests form one bucket-128 batch whose
+     replies are `torch.equal` to `GraphNet.forward` of the same padded
+     bucket; then a lone request and a burst of 8; every prob row finite,
+     of 1000, summing to 1 within 1e-4.
+   - (c) full-width CaffeNet (seed 0) behind an InferenceServer with an
+     `ImagePreprocessor` (crop 227, a seeded mean image): 128 queued
+     uint8 3x256x256 requests (one bucket-128 batch), a lone one and a
+     burst of 8; the bucket-128 and bucket-1 replies `torch.equal` to the
+     net's forward of the host-decoded, zero-padded bucket; lrn_fwd 2
+     launches per forward (counted from before the server starts).
+16. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
+   12's, 13's and 15's launches and forwards per process, every row phase
    14's launches per run), then the result line `{"ok": true,
    "device": {...}}` as the last line of standard output.
 
@@ -5244,6 +5272,300 @@ def profile_step(net, params, batch, solver_cfg, card: str,
           flush=True)
 
 
+def _strip_inits(graph):
+    """The graph with its variables' baked initial values dropped (shape
+    and dtype kept): the JSON a user serves with a weights npz."""
+    from sparknet_tpu_torch.backend import GraphDef, NodeDef
+    return GraphDef(name=graph.name, nodes=[
+        NodeDef(n.name, n.op, list(n.inputs),
+                {k: v for k, v in n.attrs.items()
+                 if not (n.op == "Variable" and k == "init")})
+        for n in graph.nodes])
+
+
+def phase_graph(card: str, device: str = "cuda", batch: int = 256,
+                tau: int = 5, rounds: int = 3, n_classes: int = 1000,
+                buckets=SERVE_BUCKETS, crop: int = 227,
+                raw: int = 256) -> dict:
+    """Phase 15 (module docstring): the graph backend and the raw-pixel
+    door. Returns the door's lrn_fwd launches and forwards and the graph
+    round's warm seconds. The arguments let the phase be rehearsed on the
+    CPU at a small size (`batch`, `buckets`, and the door's CaffeNet at a
+    small `crop` from `raw` pixels)."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import precision, zoo
+    from sparknet_tpu_torch.apps.graph_common import train_graph
+    from sparknet_tpu_torch.apps.train_loop import prepare_round_batches
+    from sparknet_tpu_torch.backend import GraphNet, build_alexnet_graph
+    from sparknet_tpu_torch.data.dataset import ArrayDataset, RoundSampler
+    from sparknet_tpu_torch.data.preprocess import ImagePreprocessor
+    from sparknet_tpu_torch.model.weights import WeightCollection
+    from sparknet_tpu_torch.net_api import TorchNet
+    from sparknet_tpu_torch.ops.cuda_lrn import lrn_fwd
+    from sparknet_tpu_torch.parallel.graph_trainer import GraphTrainer
+    from sparknet_tpu_torch.parallel.mesh import init_data_group
+    from sparknet_tpu_torch.schema import Field, Schema
+    from sparknet_tpu_torch.serve import app as serve_app
+    from sparknet_tpu_torch.serve.server import InferenceServer, ServeConfig
+    from sparknet_tpu_torch.utils.config import RunConfig
+
+    t_phase = time.perf_counter()
+    precision.set_policy("float32")
+    t0 = time.perf_counter()
+    graph = build_alexnet_graph(batch=batch, n_classes=n_classes)
+    print(f"graph: build_alexnet_graph(batch={batch}, n_classes="
+          f"{n_classes}): {len(graph.nodes)} nodes in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    r = np.random.default_rng(15)
+    n = tau * batch
+    # mean-subtracted pixel range, NHWC (the graph's layout), int8 on the
+    # host: the trainer copies int8 and casts on the card
+    data = r.integers(-128, 128, (n, 227, 227, 3), dtype=np.int8)
+    labels = r.integers(0, n_classes, (n,)).astype(np.int32)
+    train_ds = ArrayDataset({"data": data, "label": labels})
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out: dict = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+            base = RunConfig(model="graph:alexnet", tau=tau,
+                             local_batch=batch, max_rounds=rounds,
+                             eval_every=0, precision="float32", seed=0,
+                             workdir=tmp, checkpoint_async=False,
+                             collect_async=False)
+
+            def run(label, cfg):
+                log = _capture_logger()
+                t0 = time.perf_counter()
+                st = train_graph(cfg, graph, train_ds, logger=log,
+                                 device=device)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                recs = [x for x in log.records if "loss" in x]
+                for x in recs:
+                    print(f"graph[{label}]: round {x['round']} loss "
+                          f"{x['loss']:.6f} grad_norm {x.get('grad_norm')} "
+                          f"nonfinite {x.get('nonfinite')} round_s "
+                          f"{x['round_s']:.4f} img/s "
+                          f"{x['images_per_sec']:.1f} [{card}]", flush=True)
+                    if not (math.isfinite(x["loss"])
+                            and math.isfinite(x.get("grad_norm", 0.0))) \
+                            or x.get("nonfinite"):
+                        fail(f"graph[{label}] round {x['round']}: {x}")
+                bad = [k for k, v in st["variables"].items()
+                       if v.is_floating_point()
+                       and not bool(torch.isfinite(v).all())]
+                if bad:
+                    fail(f"graph[{label}]: nonfinite variables {bad[:4]}")
+                print(f"graph[{label}]: {len(recs)} rounds in "
+                      f"{time.perf_counter() - t0:.2f}s wall (set-up "
+                      f"included) [{card}]", flush=True)
+                return st, recs
+
+            # (a) the uninterrupted run; then 2 rounds saved, resumed to 3
+            full, recs = run("uninterrupted", base)
+            if len(recs) != rounds:
+                fail(f"graph: {len(recs)} rounds logged, want {rounds}")
+            ck = os.path.join(tmp, "ck")
+            run("first 2 rounds", dataclasses.replace(
+                base, max_rounds=rounds - 1, checkpoint_dir=ck,
+                checkpoint_every=0))
+            resumed, _ = run("resumed", dataclasses.replace(
+                base, checkpoint_dir=ck, resume=True))
+            diff = [f"{kind}/{k}" for kind in ("variables", "slots")
+                    for k, v in full[kind].items()
+                    if not torch.equal(resumed[kind][k], v)]
+            if diff or not resumed["it"] == full["it"] == rounds * tau:
+                fail(f"graph: the resumed run differs from the "
+                     f"uninterrupted one at {diff[:6]} (it "
+                     f"{resumed['it']} vs {full['it']})")
+            print(f"graph: a run checkpointed at round {rounds - 1} and "
+                  f"resumed to {rounds} is torch.equal to the "
+                  f"uninterrupted run ({len(full['variables'])} variables, "
+                  f"{len(full['slots'])} slots, it {full['it']}) [{card}]",
+                  flush=True)
+            warm = [x["round_s"] for x in recs[1:]]
+            med = statistics.median(warm)
+            out["round_s"] = warm
+            print(f"graph: warm rounds {_stats(warm)} s, median "
+                  f"{med * 1e3:.2f} ms a round of {tau} steps, "
+                  f"{tau * batch / med:.1f} img/s (AlexNet graph 227/"
+                  f"{n_classes}, b{batch}, f32, in-graph Momentum) [{card}]",
+                  flush=True)
+
+            # one GraphTrainer round is tau GraphNet.steps: a world of one
+            # averages to itself
+            src = RoundSampler(train_ds, 1, batch, tau, seed=0)
+            b0 = prepare_round_batches(src, 0, tau, 0, None, torch.float32)
+            group = init_data_group(device, store_path=os.path.join(
+                tmp, "store"), rank=0, world_size=1)
+            try:
+                net = GraphNet(graph, seed=0, device=group.device)
+                trainer = GraphTrainer(net, group, tau=tau)
+                state, _ = trainer.train_round(trainer.init_state(), b0)
+                stepped = GraphNet(graph, seed=0, device=group.device)
+                for t in range(tau):
+                    stepped.step({k: v[t] for k, v in b0.items()})
+                diff = [k for k, v in state["variables"].items()
+                        if not torch.equal(stepped.variables[k], v)]
+                diff += [f"slot {k}" for k, v in state["slots"].items()
+                         if not torch.equal(stepped._slots[k], v)]
+                if diff or not stepped._it == state["it"] == tau:
+                    fail(f"graph: one GraphTrainer round differs from "
+                         f"{tau} GraphNet.steps at {diff[:6]}")
+                # set_weights assigns the named variables, slots untouched
+                before = {k: v.clone() for k, v in stepped._slots.items()}
+                stepped.set_weights(stepped.get_weights())
+                moved = [k for k, v in before.items()
+                         if not torch.equal(stepped._slots[k], v)]
+                if moved:
+                    fail(f"graph: set_weights moved the slots {moved[:4]}")
+                del net, trainer, state, stepped, before
+            finally:
+                group.close()
+            print(f"graph: one GraphTrainer round torch.equal to {tau} "
+                  f"GraphNet.step calls (variables and slots); set_weights "
+                  f"leaves every slot torch.equal [{card}]", flush=True)
+
+            # (b) the same graph served from JSON and a weights npz, as
+            # `serve.app --graph g.json --weights w.npz` builds it
+            gpath = os.path.join(tmp, "alexnet.json")
+            wpath = os.path.join(tmp, "alexnet_w.npz")
+            _strip_inits(graph).save(gpath)
+            names = [k for k, v in full["variables"].items()
+                     if v.is_floating_point()]
+            WeightCollection({k: [full["variables"][k].cpu().numpy()]
+                              for k in names}, names).save(wpath)
+            del full, resumed
+            print(f"graph: served graph JSON {os.path.getsize(gpath)} B, "
+                  f"weights npz {os.path.getsize(wpath)} B", flush=True)
+            gnet = serve_app.build_net("lenet", wpath, buckets[-1], None,
+                                       None, 0, device, graph=gpath)
+            top = buckets[-1]
+            payloads = [{"data": (50.0 * r.standard_normal((227, 227, 3))
+                                  ).astype(np.float32)}
+                        for _ in range(top + 1 + 8)]
+            cfg = ServeConfig(model_name="alexnet_graph", max_batch=top,
+                              buckets=buckets, outputs=("prob",),
+                              max_wait_ms=5.0, metrics_every_batches=0)
+            server = InferenceServer(gnet, cfg)
+            futs = [server.submit(p) for p in payloads[:top]]
+            server.start()  # the queued rows form one top-bucket batch
+            try:
+                full_out = [f.result(timeout=300)["prob"] for f in futs]
+                lone = server.submit(payloads[top]).result(timeout=300)
+                burst = [server.submit(p) for p in payloads[top + 1:]]
+                rest = [lone["prob"]] + [f.result(timeout=300)["prob"]
+                                         for f in burst]
+            finally:
+                server.stop()
+            served = sorted({b for _, b in server.batch_log})
+            if server.batch_log[0] != (top, top):
+                fail(f"graph: the queued rows formed {server.batch_log[0]}")
+            rows = np.stack([p["data"] for p in payloads[:top]])
+            direct = gnet.forward({"data": rows, "label": np.zeros(
+                (top,), np.int32)}, ["prob"])["prob"]
+            got = np.stack(full_out)
+            if not torch.equal(torch.from_numpy(got),
+                               torch.from_numpy(direct)):
+                fail(f"graph: bucket-{top} replies differ from the "
+                     f"GraphNet forward of the padded bucket (max "
+                     f"{np.abs(got - direct).max():.3e})")
+            for i, p in enumerate(full_out + rest):
+                if p.shape != (n_classes,) or not np.isfinite(p).all() or \
+                        abs(float(p.sum(dtype=np.float64)) - 1.0) > 1e-4:
+                    fail(f"graph: reply {i} shape {p.shape} sum {p.sum()}")
+            print(f"graph: served {len(full_out) + len(rest)} requests "
+                  f"from {gpath.rsplit('/', 1)[-1]} + weights npz in "
+                  f"buckets {served}; every bucket-{top} reply torch.equal "
+                  f"to GraphNet.forward of the padded bucket; rows sum to "
+                  f"1 within 1e-4 [{card}]", flush=True)
+            del gnet
+
+        # (c) the raw-pixel door: CaffeNet behind an ImagePreprocessor
+        top = buckets[-1]
+        net = TorchNet(zoo.caffenet(batch=top, crop=crop,
+                                    n_classes=n_classes), seed=0,
+                       device=device)
+        mean = r.uniform(90.0, 150.0, (3, raw, raw)).astype(np.float32)
+        pre = ImagePreprocessor(Schema(Field("data", "float32",
+                                             (crop, crop, 3))),
+                                mean_image=mean, crop=crop)
+        images = [r.integers(0, 256, (3, raw, raw)).astype(np.uint8)
+                  for _ in range(top + 9)]
+        cfg = ServeConfig(model_name="caffenet_raw", max_batch=top,
+                          buckets=buckets, outputs=("prob",),
+                          max_wait_ms=5.0, metrics_every_batches=0)
+        server = InferenceServer(net, cfg, preprocessor=pre)
+        futs = [server.submit({"data": im}) for im in images[:top]]
+        lrn_fwd.launches = 0
+        server.start()  # the install canary's forward, then the batch
+        try:
+            t0 = time.perf_counter()
+            got = [f.result(timeout=300)["prob"] for f in futs]
+            t_top = time.perf_counter() - t0
+            lone = server.submit({"data": images[top]}).result(timeout=300)
+            burst = [server.submit({"data": im}) for im in images[top + 1:]]
+            burst = [f.result(timeout=300)["prob"] for f in burst]
+        finally:
+            server.stop()
+        launches = lrn_fwd.launches
+        log_ = list(server.batch_log)
+        # traffic forwards and the manager's own (the install canary)
+        forwards = len(log_) + server.manager.forwards
+        if log_[0] != (top, top):
+            fail(f"door: the queued images formed {log_[0]}")
+        if device == "cuda" and launches != 2 * forwards:
+            fail(f"door: lrn_fwd launched {launches} times over {forwards} "
+                 f"forwards (want 2 per forward)")
+
+        def decoded(ims, bucket):
+            dec = pre.convert_batch({"data": np.stack(ims)},
+                                    train=False)["data"]
+            buf = np.zeros((bucket, crop, crop, 3), np.float32)
+            buf[:len(ims)] = dec
+            return net.forward({"data": buf, "label": np.zeros(
+                (bucket, 1), np.int32)}, ["prob"])["prob"][:len(ims)]
+
+        want = decoded(images[:top], top)
+        one = decoded(images[top:top + 1], 1)
+        if not (torch.equal(torch.from_numpy(np.stack(got)),
+                            torch.from_numpy(want))
+                and torch.equal(torch.from_numpy(lone["prob"][None]),
+                                torch.from_numpy(one))):
+            fail("door: a reply differs from the forward of its "
+                 "host-decoded bucket")
+        for i, p in enumerate(got + [lone["prob"]] + burst):
+            if not np.isfinite(p).all() or \
+                    abs(float(p.sum(dtype=np.float64)) - 1.0) > 1e-4:
+                fail(f"door: reply {i} sums to {p.sum()}")
+        print(f"door: CaffeNet {crop}/{n_classes} behind an "
+              f"ImagePreprocessor (crop {crop}, mean image, route "
+              f"{pre.route(np.stack(images[:1]))}): {len(images)} uint8 "
+              f"3x{raw}x{raw} requests in {len(log_)} forwards (buckets "
+              f"{sorted({b for _, b in log_})}) and {forwards - len(log_)} "
+              f"canary forward(s); the bucket-{top} batch "
+              f"(decode included) in {t_top * 1e3:.1f} ms; bucket-{top} "
+              f"and bucket-1 replies torch.equal to the forward of the "
+              f"host-decoded bucket; lrn_fwd launches {launches} (2 per "
+              f"forward) [{card}]", flush=True)
+        out.update(launches=launches, forwards=forwards)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    print(f"graph: phase 15 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
 def _sum_rows(cases: dict, keys) -> dict:
     """The per-step sum of timed rows (`TIME_KEYS`, bound_ms) over
     `keys`."""
@@ -5308,6 +5630,7 @@ def main() -> None:
     fleet = phase_fleet(card)
     batch = phase_batch(card)
     trainers = phase_trainers(card, train["warm_round_s"])
+    graph = phase_graph(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -5355,6 +5678,8 @@ def main() -> None:
          "fleet_phase_forwards": fleet["forwards"],
          "batch_phase_launches": batch["launches"],
          "batch_phase_forwards": batch["forwards"],
+         "graph_phase_launches": graph["launches"],
+         "graph_phase_forwards": graph["forwards"],
          "serve": {k: v for k, v in agg.items() if k.endswith("_ms")
                    or k == "ms"},
          "serve_timed_at": "norm1 + norm2, bucket 128, float32",

@@ -438,7 +438,11 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
              probe: Optional[Callable[[Any], torch.Tensor]] = None,
              round_hook=None, prefetch: bool = True) -> TrainState:
     """The round loop: resume, prepare, train, log, evaluate, checkpoint,
-    roll back (see the module docstring)."""
+    roll back (see the module docstring). Generic over the trainer, as the
+    JAX loop is: `ParallelTrainer` / `ShardedTrainer` for the layer IR,
+    `parallel/graph_trainer.py:GraphTrainer` for serialized graphs. A
+    trainer without `supports_lr_scale` takes no lr backoff on a rollback,
+    and one without `checkpoint_shards` saves monolithic steps."""
     rank, n = trainer.group.rank, trainer.group.size
     if log.worker is None and n > 1:
         log.worker = rank  # stamp each rank's JSONL records
@@ -619,6 +623,8 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
         trainer.phase_timers = timers  # the h2d / dispatch split
     # read on the MAIN thread: the policy is thread-local
     compute_dt = precision.compute_dtype()
+    # the graph backend's in-graph optimizer owns its learning rate
+    supports_lr = bool(getattr(trainer, "supports_lr_scale", True))
     h2d_prefetch = bool(cfg.h2d_prefetch)
 
     def ckpt_barrier() -> None:
@@ -929,7 +935,7 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                 f"training health: rollback target step {ck_round} cannot "
                 f"be loaded — {e}") from e
         retry += 1
-        if health_cfg.lr_backoff != 1.0:
+        if supports_lr and health_cfg.lr_backoff != 1.0:
             lr_scale *= health_cfg.lr_backoff
         drop_pending()  # prepared for the old window
         log.event(ck_round, "rollback", reason=reason, target_step=ck_round,
@@ -1021,8 +1027,10 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                     timers.phase("train_round"):
                 tr_kw = ({} if tau_vec is None
                          else {"tau_by_worker": tau_vec})
+                if supports_lr:
+                    tr_kw["lr_scale"] = lr_scale
                 state, loss = trainer.train_round(state, batches, key,
-                                                  lr_scale=lr_scale, **tr_kw)
+                                                  **tr_kw)
                 del batches  # the slot or buffers go back with the round
                 scalars = _record_scalars(
                     loss, probe(state) if probe else None,
@@ -1236,13 +1244,22 @@ def _seek_stream(source, extra: Dict[str, Any], log: Logger,
     log.log(f"stream resumed at {pos}")
 
 
-def _sharded_save_enabled(cfg: RunConfig, world: int) -> bool:
-    """cfg.checkpoint_sharded for a world of `world` ranks: "auto" is
+def _sharded_save_enabled(cfg: RunConfig, trainer) -> bool:
+    """cfg.checkpoint_sharded for the trainer's world: "auto" is
     per-shard above one rank and monolithic at one (where there is
     nothing to split), "on" per-shard at any size (one shard file at one
-    rank), "off" the monolithic layout."""
+    rank), "off" the monolithic layout. A trainer without per-shard
+    snapshots (the graph backend's) saves monolithically, and "on"
+    raises for it, as in the JAX loop."""
     knob = cfg.checkpoint_sharded  # check_config validated it
-    return knob == "on" or (knob == "auto" and world > 1)
+    if not hasattr(trainer, "checkpoint_shards"):
+        if knob == "on":
+            raise ValueError(
+                f"checkpoint_sharded='on' needs a layer-IR trainer (per-rank "
+                f"shard plans); {type(trainer).__name__} saves "
+                f"monolithically")
+        return False
+    return knob == "on" or (knob == "auto" and trainer.group.size > 1)
 
 
 def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
@@ -1265,7 +1282,7 @@ def _save_checkpoint(cfg: RunConfig, trainer: ParallelTrainer,
     `writer` is None, else on the rank's background writer. The bytes,
     digests and tags are the same either way."""
     group = trainer.group
-    sharded = _sharded_save_enabled(cfg, group.size)
+    sharded = _sharded_save_enabled(cfg, trainer)
     if sharded:
         if group.size > 1:
             if writer is not None:

@@ -37,8 +37,11 @@ the kernel-build directory the lanes and the fleet's children share, so a
 warm replica's cold start runs no nvcc (default `$SPARKNET_COMPILE_CACHE`,
 else `sparknet_tpu_torch/_build/`).
 
-The flags of later slices keep the JAX package's names and stop with an
-error naming their ROADMAP item: the graph backend (`--graph`).
+`--graph g.json|g.pb` serves a serialized graph instead of `--model`
+(the second backend, `backend/graph_net.py:GraphNet`), with `--weights`
+a `WeightCollection` npz assigned by variable name; a graph net serves
+f32 from its weights file (no `--checkpoint-dir` hot reload, no
+`--quant`, as in the JAX CLI).
 
 Examples:
     python -m sparknet_tpu_torch.serve.app --model caffenet --max-batch 128 \
@@ -52,6 +55,8 @@ Examples:
         --quant int8 --buckets-from run/serving_metrics_*.jsonl --demo 8
     python -m sparknet_tpu_torch.serve.app --model deploy.prototxt \
         --weights trained.caffemodel --device cpu --demo 8
+    python -m sparknet_tpu_torch.serve.app --graph alexnet.json \
+        --weights w.npz --outputs prob --demo 8
     python -m sparknet_tpu_torch.serve.app --models m=lenet --autoscale \
         --fleet-provider none --slo-p99-ms 50 --history --history-dir H \
         --device cpu --demo 4
@@ -98,9 +103,19 @@ def resolve_spec(model: str, max_batch: int, n_classes: Optional[int],
 
 def build_net(model: str, weights: Optional[str], max_batch: int,
               n_classes: Optional[int], crop: Optional[int], seed: int,
-              device: Optional[str]) -> TorchNet:
+              device: Optional[str], graph: Optional[str] = None):
     """A zoo name or a `.prototxt` path -> a TorchNet on `device` with
-    seeded weights, or those of `weights` (`.npz` or `.caffemodel`)."""
+    seeded weights, or those of `weights` (`.npz` or `.caffemodel`); or,
+    with `graph` (.json / .pb), a GraphNet whose variables `weights` (a
+    `WeightCollection` npz) assigns by name."""
+    if graph:
+        from ..apps.graph_common import load_graph
+        from ..backend import GraphNet
+        from ..model.weights import WeightCollection
+        gnet = GraphNet(load_graph(graph, None), seed=seed, device=device)
+        if weights:
+            gnet.set_weights(WeightCollection.load(weights))
+        return gnet
     net = TorchNet(resolve_spec(model, max_batch, n_classes, crop),
                    seed=seed, device=device)
     if weights:
@@ -166,20 +181,6 @@ def parse_weights_arg(spec: Optional[str]) -> dict:
             raise SystemExit(f"--tenant-weights entry {part!r} is not "
                              f"tenant=weight")
     return out
-
-
-#: flags of later slices: (dest, value when unset, ROADMAP item)
-LATER_FLAGS = (
-    ("graph", None, "the graph backend (backend/graph_net.py): "
-                    "ROADMAP A12"),
-)
-
-
-def _add_later_flags(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's flags of later slices, parsed so that each can stop
-    with its ROADMAP item (defaults None = "not given")."""
-    p.add_argument("--graph", default=None,
-                   help="serialized graph model (not ported: ROADMAP A12)")
 
 
 def _add_fleet_flags(p: argparse.ArgumentParser) -> None:
@@ -269,6 +270,8 @@ def main(argv=None) -> None:
                    "(sources are zoo names / .prototxt paths)")
     p.add_argument("--router-workers", type=int, default=2,
                    help="shared pool threads in --models mode (default 2)")
+    p.add_argument("--graph", default=None,
+                   help="serialized graph (.pb/.json) instead of --model")
     p.add_argument("--weights", default=None,
                    help="weights to load: .npz (WeightCollection) or "
                    ".caffemodel (default: seeded random)")
@@ -395,13 +398,8 @@ def main(argv=None) -> None:
                    help="self-drive N synthetic requests, print status "
                    "JSON, exit")
     _add_fleet_flags(p)
-    _add_later_flags(p)
     args = p.parse_args(argv)
 
-    for dest, unset, what in LATER_FLAGS:
-        if getattr(args, dest) != unset:
-            p.error(f"--{dest.replace('_', '-')} needs {what}, which is "
-                    f"not ported yet")
     if args.quant_tol is not None and not args.quant:
         p.error("--quant-tol requires --quant (no parity gate exists "
                 "on the f32 path)")
@@ -573,7 +571,7 @@ def main(argv=None) -> None:
         else:
             net = build_net(args.model, args.weights, args.max_batch,
                             args.n_classes, args.crop, args.seed,
-                            args.device)
+                            args.device, graph=args.graph)
             cfg = lane_cfg(args.model_name, args.checkpoint_dir)
             cfg.status_port = args.status_port
             cfg.heartbeat_path = args.heartbeat

@@ -151,10 +151,15 @@ class ModelManager:
                  replica: str = "local", poll_jitter: float = 0.0,
                  rollout_gate: Optional[str] = None,
                  seed: Optional[int] = None):
-        if quant is not None and not hasattr(net, "set_quant"):
+        if checkpoint_dir and not hasattr(net, "params"):
             raise ServeModelError(
-                "quantized serving needs a TorchNet (exposes "
-                ".params/.set_quant)")
+                "checkpoint hot-reload needs a layer-IR TorchNet (exposes "
+                ".params); serve a graph net from a weights file instead")
+        if quant is not None and not (hasattr(net, "params")
+                                      and hasattr(net, "set_quant")):
+            raise ServeModelError(
+                "quantized serving needs a layer-IR TorchNet (exposes "
+                ".params/.set_quant); the graph backend serves f32")
         #: weight-only quantization at load time (model/quant.py): every
         #: install — initial weights included — quantizes the f32 params
         #: and gates on the parity canary against the f32 forward

@@ -385,19 +385,16 @@ class ModelRouter:
         model's first replica. The lane takes its initial weights as a
         lone server does (`ModelManager.load_initial` at start: the newest
         verified step of its `checkpoint_dir`, else the net's own). Call
-        before start(). `preprocessor` (raw-pixel preprocessing at the
-        door) is not ported: only None is accepted."""
-        if preprocessor is not None:
-            raise NotImplementedError(
-                "raw-pixel preprocessing at the door (the JAX server's "
-                "`preprocessor`) is not ported: requests carry the net's "
-                "own input schema")
+        before start(). `preprocessor` is the lane's raw-pixel door
+        (`InferenceServer`'s: each formed batch is decoded before it is
+        padded)."""
         if name in self.lanes:
             raise ValueError(f"model {name!r} already added")
         cfg = replace(cfg if cfg is not None else ServeConfig(),
                       model_name=name, registry=self.registry,
                       status_port=None, heartbeat_path=None)
-        lane = InferenceServer(net, cfg, logger=self.log)
+        lane = InferenceServer(net, cfg, preprocessor=preprocessor,
+                               logger=self.log)
         lane.batcher.on_submit = self._wake
         self.lanes[name] = lane
         self._order.append(name)

@@ -60,8 +60,18 @@ it as a compile region and folds it into the server's first
 kernel-build directory is cold records a `cache_hit="false"` event, a
 warm one none, and the count of events is the JAX server's.
 
-Not ported: raw-pixel preprocessing at the door (the JAX server's
-`preprocessor`): requests carry the net's own input schema.
+The raw-pixel door (`preprocessor`, the JAX server's): a server built
+with one (e.g. `data/preprocess.py:ImagePreprocessor`) takes requests in
+the preprocessor's raw schema (uint8 CHW pixels), skips the per-example
+schema check at submit, and decodes each formed batch with
+`preprocessor.convert_batch(..., train=False)` (the center crop and the
+mean: deterministic, so a request decodes alike alone and in a batch)
+before it fills the bucket's buffers. Requests of one batch group share
+their raw shapes (the batcher groups by signature).
+
+The net is a `TorchNet` or, the second backend, a
+`backend/graph_net.py:GraphNet` (`net_input_specs` reads either; a
+graph's output names are not checked at submit, as in the JAX server).
 """
 from __future__ import annotations
 
@@ -94,11 +104,16 @@ FIRST_FORWARD_BUCKETS = (0.001, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
 
 
 def net_input_specs(net) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """{input name: (per-example NHWC shape, dtype)} for a net that wraps a
-    CompiledNet as `.net` (TorchNet)."""
-    dtypes = {i.name: i.dtype for i in net.net.spec.inputs}
-    return {name: (tuple(shape[1:]), dtypes.get(name, "float32"))
-            for name, shape in net.net.input_shapes.items()}
+    """{input name: (per-example NHWC shape, dtype)} for either backend: a
+    TorchNet wraps a CompiledNet as `.net`; a GraphNet exposes its
+    placeholders through `input_shapes()` / `input_dtypes()`."""
+    if hasattr(net, "net"):  # TorchNet
+        dtypes = {i.name: i.dtype for i in net.net.spec.inputs}
+        return {name: (tuple(shape[1:]), dtypes.get(name, "float32"))
+                for name, shape in net.net.input_shapes.items()}
+    shapes, dtypes = net.input_shapes(), net.input_dtypes()
+    return {name: (tuple(shapes[name][1:]), dtypes.get(name, "float32"))
+            for name in shapes}
 
 
 def zeros_batch(net, n: int, bf16: bool = False) -> Dict[str, Any]:
@@ -274,13 +289,15 @@ class ServeConfig:
 
 
 class InferenceServer:
-    """Dynamic-batching inference over one TorchNet (module doc)."""
+    """Dynamic-batching inference over one TorchNet or GraphNet, with an
+    optional raw-pixel `preprocessor` at the door (module doc)."""
 
     def __init__(self, net, cfg: Optional[ServeConfig] = None,
-                 logger: Optional[Logger] = None):
+                 preprocessor=None, logger: Optional[Logger] = None):
         self.net = net
         self.cfg = cfg = cfg if cfg is not None else ServeConfig()
         self.model_name = cfg.model_name
+        self.preprocessor = preprocessor
         self.log = logger
         # process-global, so the first server wins on the directory; called
         # unconditionally (the train loop's rule): with no knob,
@@ -389,19 +406,33 @@ class InferenceServer:
         if outputs is None:
             outputs = inline
         if outputs:
-            bad = [o for o in outputs if o not in self.net.net.blob_shapes]
+            known = self._known_blobs()
+            bad = [o for o in outputs if known is not None
+                   and o not in known]
             if bad:
                 raise ValueError(
                     f"unknown output blob(s) {bad!r} "
-                    f"(net has {sorted(self.net.net.blob_shapes)})")
+                    f"(net has {sorted(known)})")
         self._validate_payload(payload)
         return self.batcher.submit(payload, deadline_s=deadline_s,
                                    priority=priority, outputs=outputs,
                                    trace=trace)
 
+    def _known_blobs(self) -> Optional[set]:
+        """The net's nameable blobs, or None when the backend cannot
+        enumerate them (a GraphNet: an unknown name then fails in the
+        forward)."""
+        inner = getattr(self.net, "net", None)
+        shapes = getattr(inner, "blob_shapes", None)
+        return set(shapes) if shapes else None
+
     def _validate_payload(self, payload: Dict[str, Any]) -> None:
         """Reject a mis-shaped or unknown-field example AT THE DOOR with a
-        ValueError, before it can enter (and fail) a whole batch."""
+        ValueError, before it can enter (and fail) a whole batch. Skipped
+        with a preprocessor: raw pixel shapes differ from the net's input
+        schema until the batch is decoded."""
+        if self.preprocessor is not None:
+            return
         for k, v in payload.items():
             spec = self._input_specs.get(k)
             if spec is None:
@@ -697,12 +728,29 @@ class InferenceServer:
                 self.net, bucket, bf16=self._bf16)
             self._bucket_dirty[bucket] = set()
         payload = reqs[0].payload
+        if self.preprocessor is not None:
+            # batch-level decode, eval semantics: the center crop and the
+            # mean are deterministic, so a request decodes alike alone and
+            # in a batch
+            payload = self.preprocessor.convert_batch(
+                {k: np.stack([r.payload[k] for r in reqs])
+                 for k in payload}, train=False)
         dirty = self._bucket_dirty[bucket]
         for k in dirty - set(payload):
             buf[k][:] = 0  # stale rows from a batch that carried k
         dirty.intersection_update(payload)
         for k in payload:
-            dst = buf[k]
+            dst = buf.get(k)
+            if dst is None:
+                raise ValueError(f"request field {k!r} is not a net input "
+                                 f"(net has {sorted(buf)})")
+            if self.preprocessor is not None:
+                v = payload[k]
+                dst[:n] = (torch.as_tensor(v) if isinstance(
+                    dst, torch.Tensor) else v)
+                dst[n:] = 0
+                dirty.add(k)
+                continue
             rows = [r.payload[k] for r in reqs]
             if isinstance(dst, torch.Tensor):
                 # the bfloat16 lane: stack, then round into the buffer

@@ -10,8 +10,9 @@ MNIST, a CSV for Adult, CIFAR binaries for the featurizer), from seeds.
   `test_torch_apps.py::test_train_matches_the_jax_train`) and test
   accuracies equal.
 - The featurizer's features from one `.caffemodel` equal the JAX
-  featurizer's within rtol 1e-4 + atol 1e-6; `--graph` (the second
-  backend, ROADMAP A12) raises NotImplementedError.
+  featurizer's within rtol 1e-4 + atol 1e-6, and so do its `--graph`
+  features (the second backend: a GraphDef JSON and a weights npz) of a
+  hidden node.
 - Each CLI runs with `--device cpu`.
 """
 import json
@@ -156,9 +157,41 @@ def test_the_featurizer_matches_the_jax_featurizer(cifar_dir, tmp_path):
     got = np.load(tmp_path / "port.npz")["features"]
     assert got.shape == want.shape == (100, 64)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A12"):
-        featurizer_app.main(["--device", "cpu", "--data-dir",
-                             str(cifar_dir), "--graph", "model.pb"])
+    # --graph: a small conv graph (NHWC placeholder; the loader's NCHW
+    # pixels are recognised and transposed by both GraphNets) and a
+    # weights npz, features of a hidden node
+    from sparknet_tpu.backend import GraphNet as JaxGraphNet
+    from sparknet_tpu_torch.backend import GraphBuilder
+    r = np.random.default_rng(3)
+    g = GraphBuilder("feat")
+    g.placeholder("data", (50, 32, 32, 3))
+    g.placeholder("label", (50, 1), dtype="int32")
+    g.variable("c_w", 0.1 * r.standard_normal((3, 3, 3, 4)))
+    g.variable("c_b", np.zeros(4))
+    x = g.relu("relu1", g.bias_add("cb", g.conv2d("c", "data", "c_w",
+                                                  stride=2), "c_b"))
+    x = g.flatten("flat", g.max_pool("pool", x))
+    g.variable("f_w", 0.1 * r.standard_normal((8 * 8 * 4, 10)))
+    logits = g.matmul("logits", x, "f_w")
+    graph = g.finalize(loss=g.sparse_softmax_ce("loss", logits, "label"))
+    gpath, wpath = str(tmp_path / "g.json"), str(tmp_path / "gw.npz")
+    graph.save(gpath)
+    from sparknet_tpu_torch.model.weights import WeightCollection
+    src = JaxGraphNet(graph)
+    names = src.get_weights().layer_names
+    # weights the file's init does not hold
+    WeightCollection({v: [0.1 * r.standard_normal(src.variables[v].shape)]
+                      for v in names}, names).save(wpath)
+    for fn, name, extra in ((jax_featurizer_app.main, "gjax", []),
+                            (featurizer_app.main, "gport",
+                             ["--device", "cpu"])):
+        fn(extra + ["--data-dir", str(cifar_dir), "--graph", gpath,
+                    "--weights", wpath, "--batch", "50", "--blob", "relu1",
+                    "--out", str(tmp_path / f"{name}.npz")])
+    want = np.load(tmp_path / "gjax.npz")["features"]
+    got = np.load(tmp_path / "gport.npz")["features"]
+    assert got.shape == want.shape == (100, 16, 16, 4)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
 
 def _cli(tmp_path, module, *args):

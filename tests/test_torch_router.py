@@ -803,9 +803,12 @@ def test_busy_router_still_runs_idle_lane_duties(pnets, tmp_path):
 
 def test_refusals_name_their_gap(pnets):
     r = ModelRouter(RouterConfig())
-    with pytest.raises(NotImplementedError, match="preprocess"):
-        r.add_model("m", pnets["a"], preprocessor=object())
+    # the raw-pixel door passes through to the lane (no longer refused)
+    door = object()
+    lane = r.add_model("p", pnets["a"], cfg=_cfg(), preprocessor=door)
+    assert lane.preprocessor is door and r.lanes["p"] is lane
     r.add_model("m", pnets["a"], cfg=_cfg())
+    assert r.lanes["m"].preprocessor is None
     with pytest.raises(ValueError, match="already added"):
         r.add_model("m", pnets["a"], cfg=_cfg())
     with pytest.raises(ValueError, match="exactly one"):

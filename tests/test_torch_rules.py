@@ -2,7 +2,9 @@
 
 - No module of `sparknet_tpu_torch/`, and not `chip_smoke.py`, imports jax,
   jaxlib or the JAX package (AST scan), and importing every module of the
-  port leaves jax out of `sys.modules` (subprocess).
+  port leaves jax out of `sys.modules` (subprocess). The scan covers the
+  second backend (`backend/`, `parallel/graph_trainer.py`, the graph apps)
+  and catches an import of `sparknet_tpu.backend`.
 - Entry points run on the card by default and raise without one unless
   the caller passes device="cpu".
 - The LRN wrapper counts kernel launches only: CPU tensors take the plain
@@ -53,6 +55,32 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     for mod in _imported_roots(path):
         root = mod.split(".")[0]
         assert root not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+#: the second backend's modules, which the JAX package keeps beside jax
+#: (its `backend/tf_import.py` and `builder.py` are pure numpy but import
+#: `graphdef.py`, which imports jax): the port has copies of its own
+GRAPH_MODULES = ("backend/__init__.py", "backend/graphdef.py",
+                 "backend/graph_net.py", "backend/tf_import.py",
+                 "backend/builder.py", "parallel/graph_trainer.py",
+                 "apps/graph_common.py", "apps/graph_mnist_app.py",
+                 "apps/graph_imagenet_app.py")
+
+
+def test_the_scan_covers_the_graph_backend_and_catches_its_jax_twin(
+        tmp_path):
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    assert set(GRAPH_MODULES) <= scanned
+    bad = tmp_path / "leaky.py"
+    bad.write_text("from sparknet_tpu.backend import GraphNet\n"
+                   "import sparknet_tpu.backend.tf_import\n"
+                   "from sparknet_tpu_torch.backend import GraphDef\n")
+    roots = [m.split(".")[0] for m in _imported_roots(bad)]
+    assert roots == ["sparknet_tpu", "sparknet_tpu", "sparknet_tpu_torch"]
+    assert [r in FORBIDDEN for r in roots] == [True, True, False]
+    with pytest.raises(AssertionError, match="imports sparknet_tpu.backend"):
+        test_port_never_imports_jax_or_the_jax_package(bad)
 
 
 def test_importing_every_port_module_leaves_jax_unloaded():

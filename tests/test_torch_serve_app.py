@@ -3,8 +3,9 @@ package's: the registry's metric families, the /status keys and the
 heartbeat schema of a watched server behind an HTTP frontend; the serve
 CLI with `--checkpoint-dir` and `--heartbeat` against the JAX CLI's
 printed keys; the CLI answering on its own HTTP socket (`--http-port 0`,
-a subprocess); the flag of a later slice (`--graph`), which stops
-naming its ROADMAP item; and `--compile-cache` / `compile_cache_dir`,
+a subprocess); `--graph` (the second backend: a GraphDef JSON and its
+weights npz) against the JAX CLI, and its refusal of hot reload and int8;
+and `--compile-cache` / `compile_cache_dir`,
 which point the kernel builds at the warm-up cache.
 """
 import json
@@ -229,22 +230,71 @@ def test_the_serve_cli_answers_on_its_http_socket(tmp_path):
         proc.stderr.close()
 
 
-@pytest.mark.parametrize("dest,unset,what", app.LATER_FLAGS,
-                         ids=[d for d, _, _ in app.LATER_FLAGS])
-def test_flags_of_later_slices_stop_naming_their_roadmap_item(
-        dest, unset, what, capsys, tmp_path):
-    flag = "--" + dest.replace("_", "-")
-    argv = ["--model", "lenet", "--device", "cpu", "--demo", "1",
-            "--workdir", str(tmp_path)]
-    if unset is False:
-        argv.append(flag)
-    else:
-        argv += [flag, {"graph": "g.pb"}[dest]]
-    with pytest.raises(SystemExit) as e:
-        app.main(argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "ROADMAP" in err and "not ported" in err
+def _graph_files(tmp_path):
+    """The builder's mnist graph (batch 4) as JSON, and a weights npz of
+    seeded values (not the graph's own init)."""
+    from sparknet_tpu_torch.backend import GraphNet, build_mnist_graph
+    from sparknet_tpu_torch.model.weights import WeightCollection
+    graph = build_mnist_graph(batch=4)
+    gpath, wpath = str(tmp_path / "mnist.json"), str(tmp_path / "w.npz")
+    graph.save(gpath)
+    shapes = {k: tuple(v.shape) for k, v in GraphNet(
+        graph, device="cpu").variables.items()}
+    r = np.random.default_rng(4)
+    WeightCollection({k: [0.05 * r.standard_normal(s)]
+                      for k, s in shapes.items()}, list(shapes)).save(wpath)
+    return gpath, wpath
+
+
+def test_the_graph_flag_serves_a_json_graph_with_its_weights(tmp_path,
+                                                             capsys):
+    """`--graph g.json --weights w.npz`: the port's CLI serves what the JAX
+    CLI serves (the same status keys and counts), and the net it builds
+    answers as the JAX GraphNet with those weights (rtol 1e-5, atol
+    1e-6)."""
+    from sparknet_tpu.serve.app import build_net as jax_build_net
+    from sparknet_tpu.serve.app import main as jax_main
+    gpath, wpath = _graph_files(tmp_path)
+    st = {}
+    for k, fn, extra in (("port", app.main, ["--device", "cpu"]),
+                         ("jax", jax_main, [])):
+        fn(["--graph", gpath, "--weights", wpath, "--outputs", "prob",
+            "--max-batch", "4", "--demo", "6", "--workdir",
+            str(tmp_path / k)] + extra)
+        st[k] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(st["port"]) == set(st["jax"]) | PORT_ONLY_STATUS
+    for key in ("requests_ok", "requests_failed", "model_step", "quant"):
+        assert st["port"][key] == st["jax"][key], key
+    assert st["port"]["requests_ok"] == 6
+    pnet = app.build_net("lenet", wpath, 4, None, None, 0, "cpu",
+                         graph=gpath)
+    jnet = jax_build_net(None, gpath, wpath, 4, 10, None)
+    x = np.random.default_rng(5).standard_normal(
+        (4, 28, 28, 1)).astype(np.float32)
+    batch = {"data": x, "label": np.zeros((4, 1), np.int32)}
+    np.testing.assert_allclose(pnet.forward(batch, ["prob"])["prob"],
+                               jnet.forward(batch, ["prob"])["prob"],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("flag", ["checkpoint_dir", "quant"])
+def test_a_graph_net_refuses_hot_reload_and_int8(flag, tmp_path):
+    """A graph net serves f32 from its weights file: the manager refuses a
+    checkpoint dir and int8 with the JAX package's reasons."""
+    from sparknet_tpu.backend import GraphNet as JaxGraphNet
+    from sparknet_tpu.serve.model_manager import ServeModelError as JaxErr
+    from sparknet_tpu_torch.backend import GraphNet, build_mnist_graph
+    from sparknet_tpu_torch.serve.model_manager import ServeModelError
+    kw = ({"checkpoint_dir": str(tmp_path)} if flag == "checkpoint_dir"
+          else {"quant": "int8"})
+    graph = build_mnist_graph(batch=4)
+    with pytest.raises(JaxErr) as want:
+        JaxServer(JaxGraphNet(graph), JaxServeConfig(**kw))
+    with pytest.raises(ServeModelError) as got:
+        InferenceServer(GraphNet(graph, device="cpu"), ServeConfig(**kw))
+    tail = "serve a graph net from a weights file instead" \
+        if flag == "checkpoint_dir" else "the graph backend serves f32"
+    assert tail in str(want.value) and tail in str(got.value)
 
 
 @pytest.mark.parametrize("how", ["config", "flag"])
