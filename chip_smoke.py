@@ -10,7 +10,8 @@ fleet that grows, rolls out, heals and shrinks itself on its SLO, and as
 a bulk-inference job over two replicas that share a warm-up cache,
 with ZeRO state sharding and the logical checkpoint layout, and does it
 train and serve a serialized AlexNet graph (the second backend) and serve
-CaffeNet from raw pixels?
+CaffeNet from raw pixels, and does its sequence-parallel attention hold
+exact attention at a 32k-token context?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -395,7 +396,30 @@ Phases, in order; any failure exits non-zero before the result line:
      burst of 8; the bucket-128 and bucket-1 replies `torch.equal` to the
      net's forward of the host-decoded, zero-padded bucket; lrn_fwd 2
      launches per forward (counted from before the server starts).
-16. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
+16. Sequence-parallel attention (no kernel of the port: its products and
+   softmax are PyTorch ops), B=1, H=8, D=128, on seeded q, k, v:
+   - (a) one rank's work of a 4-card ring at L=32768: query shards 0 and
+     3 (8192 tokens each) through the ring's order of four
+     `block_accumulate` calls over 8192-token KV blocks (shard r holds KV
+     shard (r - t) mod 4 at step t), then `finalize_accumulator`, under
+     "float32" (TF32 off) and "bfloat16", causal and not. Each case runs
+     once to warm up, then forward and backward of sum(o**2) timed (host
+     clock around synchronized work) with `max_memory_allocated` of the
+     timed run; the output rows and the gradients in q_r, k and v are held
+     to exact `attention` over the whole sequence, one head at a time
+     (one head's float32 scores are 4.3 GB; all eight heads' forward and
+     backward would not fit on the card): the largest |error| over the
+     largest |reference| at most 1e-4 under "float32" and 3e-2 under
+     "bfloat16" (`ATTN_TOL`). Prints the ms, the peak memory and the
+     FLOPs (4·B·H·Lq·L·D forward, 3x that with the backward).
+   - (b) `make_ring_attention` on a world of one NCCL group, ring and
+     Ulysses, causal and not, at L=8192, float32: the output within 1e-4
+     (relative to its largest value) of exact attention.
+   Launch counters are zeroed before and read after: the path runs none
+   of the port's kernels (its products and softmax are PyTorch calls), so
+   all stay 0. Prints the `{"attention": {...}}` line before the kernels
+   line.
+17. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
    12's, 13's and 15's launches and forwards per process, every row phase
    14's launches per run), then the result line `{"ok": true,
    "device": {...}}` as the last line of standard output.
@@ -5566,6 +5590,176 @@ def phase_graph(card: str, device: str = "cuda", batch: int = 256,
     return out
 
 
+#: phase 16's largest |error| over largest |reference| (output, dq, dk, dv)
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 when both are 0)."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / scale if scale else err
+
+
+def phase_attention(card: str, device: str = "cuda", seq: int = 32768,
+                    heads: int = 8, d: int = 128, ranks: int = 4,
+                    world1_seq: int = 8192) -> dict:
+    """Phase 16 (module docstring): sequence-parallel attention. (a) one
+    rank's work of a `ranks`-card ring at B=1, L=`seq`: query shards 0
+    and ranks-1 through the ring's order of `block_accumulate` calls over
+    L/ranks-token KV blocks and `finalize_accumulator`, under "float32"
+    (TF32 off) and "bfloat16", causal and not, against exact `attention`
+    over the whole sequence one head at a time (output rows and the
+    gradients of sum(o**2) in q_r, k and v); (b) `make_ring_attention` on
+    a world of one group, ring and Ulysses, at L=`world1_seq` against exact
+    attention. Returns the figures for the attention line. The arguments
+    let the phase be rehearsed on the CPU at a small size."""
+    import tempfile
+
+    import torch
+
+    from sparknet_tpu_torch import precision
+    from sparknet_tpu_torch.ops.attention import (attention,
+                                                  block_accumulate,
+                                                  finalize_accumulator,
+                                                  init_accumulator)
+    from sparknet_tpu_torch.parallel.mesh import init_data_group
+    from sparknet_tpu_torch.parallel.ring_attention import \
+        make_ring_attention
+
+    t_phase = time.perf_counter()
+    _zero_counts()  # attention's path runs none of the port's kernels
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = (torch.randn((1, seq, heads, d), generator=gen, device=dev)
+               for _ in range(3))
+    lq = seq // ranks
+    fwd_flops = 4 * heads * lq * seq * d
+    cases = []
+    for pol in ("float32", "bfloat16"):
+        with precision.policy(pol):
+            dt = precision.compute_dtype()
+            for causal in (False, True):
+                for r in (0, ranks - 1):
+
+                    def ring_rank():
+                        qr = q[:, r * lq:(r + 1) * lq].to(dt).clone() \
+                            .requires_grad_()
+                        kk, vv = (x.to(dt).clone().requires_grad_()
+                                  for x in (k, v))
+                        o, m, l = init_accumulator(qr.shape, dev)
+                        for t in range(ranks):
+                            src = (r - t) % ranks  # the ring's order
+                            blk = slice(src * lq, (src + 1) * lq)
+                            o, m, l = block_accumulate(
+                                o, m, l, qr, kk[:, blk], vv[:, blk],
+                                k_offset=src * lq, q_offset=r * lq,
+                                causal=causal)
+                        out = finalize_accumulator(o, m, l, qr.dtype)
+                        torch.sum(out.float() ** 2).backward()
+                        return out.detach(), qr.grad, kk.grad, vv.grad
+
+                    ring_rank()  # warm-up
+                    sync()
+                    if cuda:
+                        torch.cuda.reset_peak_memory_stats(dev)
+                    t0 = time.perf_counter()
+                    got = ring_rank()
+                    sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    peak = torch.cuda.max_memory_allocated(dev) if cuda \
+                        else None
+                    if not all(bool(torch.isfinite(g).all()) for g in got):
+                        fail(f"attention: non-finite output or gradient "
+                             f"({pol}, causal {causal}, shard {r})")
+                    err = dict.fromkeys(("out", "dq", "dk", "dv"), 0.0)
+                    rows = slice(r * lq, (r + 1) * lq)
+                    for h in range(heads):
+                        xs = [x[:, :, h:h + 1].to(dt).contiguous()
+                              .requires_grad_() for x in (q, k, v)]
+                        oh = attention(*xs, causal=causal)
+                        torch.sum(oh[:, rows].float() ** 2).backward()
+                        want = (oh[:, rows].detach(), xs[0].grad[:, rows],
+                                xs[1].grad, xs[2].grad)
+                        for n, g, w in zip(err, got, want):
+                            err[n] = max(err[n], _rel_err(g[:, :, h],
+                                                          w[:, :, 0]))
+                        del xs, oh, want
+                    case = {"policy": pol, "causal": causal, "shard": r,
+                            "fwd_bwd_ms": ms, "peak_bytes": peak,
+                            "fwd_flops": fwd_flops,
+                            **{f"rel_err_{n}": e for n, e in err.items()}}
+                    # fwd + bwd: the two forward products and the four
+                    # backward ones of every score, 3x the forward
+                    tflops = 3 * fwd_flops / (ms * 1e-3) / 1e12
+                    print(f"attention: ring shard {r}/{ranks} of L={seq} "
+                          f"(B=1, H={heads}, D={d}), {pol}"
+                          f"{', causal' if causal else ''}: fwd+bwd "
+                          f"{ms:.2f} ms ({tflops:.1f} TFLOP/s at 3 x "
+                          f"{fwd_flops / 1e12:.4f} TFLOP), peak "
+                          f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}"
+                          f"; max err / max ref: out {err['out']:.2e}, dq "
+                          f"{err['dq']:.2e}, dk {err['dk']:.2e}, dv "
+                          f"{err['dv']:.2e} (tolerance {ATTN_TOL[pol]}) "
+                          f"[{card}]", flush=True)
+                    for n, e in err.items():
+                        if not e <= ATTN_TOL[pol]:
+                            fail(f"attention: ring shard {r} {n} off exact "
+                                 f"attention by {e:.3e} of its largest "
+                                 f"value ({pol}, causal {causal}; tolerance "
+                                 f"{ATTN_TOL[pol]})")
+                    cases.append(case)
+                    del got
+    del q, k, v
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the host-level wrapper on a world of one group (NCCL on the card)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v = (torch.randn((1, world1_seq, heads, d), generator=gen,
+                           device=dev) for _ in range(3))
+    world1 = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_attn_") as tmp:
+        group = init_data_group(device, store_path=os.path.join(tmp, "store"),
+                                rank=0, world_size=1)
+        try:
+            with precision.policy("float32"):
+                for causal in (False, True):
+                    want = attention(q, k, v, causal=causal)
+                    for impl in ("ring", "ulysses"):
+                        got = make_ring_attention(group, causal=causal,
+                                                  impl=impl)(q, k, v)
+                        e = _rel_err(got, want)
+                        world1[f"{impl}{'_causal' if causal else ''}"] = e
+                        if not e <= ATTN_TOL["float32"]:
+                            fail(f"attention: {impl} on a world of one off "
+                                 f"exact attention by {e:.3e} (causal "
+                                 f"{causal})")
+        finally:
+            group.close()
+    print(f"attention: make_ring_attention on a world of one "
+          f"({'NCCL' if cuda else 'gloo'}) at L={world1_seq}, float32, "
+          f"max err / max ref against exact attention: "
+          f"{json.dumps(world1)} [{card}]", flush=True)
+    launches = _read_counts()
+    if any(launches.values()):
+        fail(f"attention: the path launched the port's kernels {launches}")
+    secs = time.perf_counter() - t_phase
+    print(f"attention: phase 16 took {secs:.1f} s; kernel launches "
+          f"{launches} [{card}]", flush=True)
+    return {"card": card, "shape": {"B": 1, "L": seq, "H": heads, "D": d,
+                                    "ranks": ranks, "block": lq},
+            "tolerance": ATTN_TOL, "ring_rank_cases": cases,
+            "world_of_one": {"L": world1_seq, "rel_err": world1},
+            "kernel_launches": launches, "seconds": secs}
+
+
 def _sum_rows(cases: dict, keys) -> dict:
     """The per-step sum of timed rows (`TIME_KEYS`, bound_ms) over
     `keys`."""
@@ -5631,6 +5825,7 @@ def main() -> None:
     batch = phase_batch(card)
     trainers = phase_trainers(card, train["warm_round_s"])
     graph = phase_graph(card)
+    attn = phase_attention(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -5648,6 +5843,7 @@ def main() -> None:
                         "kernel, back to back on the card (null: not "
                         "measured); host_ms: the host's time to queue one "
                         "call there (the wrapper and the launch)"}
+    print(json.dumps({"attention": attn}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "lrn_fwd",
          "source": "sparknet_tpu_torch/csrc/lrn_fwd.cu",

@@ -4,9 +4,11 @@
   jaxlib or the JAX package (AST scan), and importing every module of the
   port leaves jax out of `sys.modules` (subprocess). The scan covers the
   second backend (`backend/`, `parallel/graph_trainer.py`, the graph apps)
-  and catches an import of `sparknet_tpu.backend`.
+  and catches an import of `sparknet_tpu.backend`; it covers attention
+  (`ops/attention.py`, `parallel/ring_attention.py`) and the dry run
+  (`dryrun.py`).
 - Entry points run on the card by default and raise without one unless
-  the caller passes device="cpu".
+  the caller passes device="cpu" (`dryrun_multichip` too).
 - The LRN wrapper counts kernel launches only: CPU tensors take the plain
   version, never load the kernel library and leave the count at 0.
 - `chip_smoke.py` exits non-zero and prints no result without a card, and
@@ -26,6 +28,7 @@ import torch
 
 from sparknet_tpu_torch import zoo
 from sparknet_tpu_torch.device import resolve_device
+from sparknet_tpu_torch.dryrun import dryrun_multichip
 from sparknet_tpu_torch.net_api import TorchNet
 from sparknet_tpu_torch.ops import _build, cuda_lrn
 
@@ -83,6 +86,19 @@ def test_the_scan_covers_the_graph_backend_and_catches_its_jax_twin(
         test_port_never_imports_jax_or_the_jax_package(bad)
 
 
+#: sequence-parallel attention and the multi-rank dry run, which the JAX
+#: package keeps beside jax (`ops/attention.py`, `parallel/
+#: ring_attention.py`, `__graft_entry__.py:dryrun_multichip`)
+ATTENTION_MODULES = ("ops/attention.py", "parallel/ring_attention.py",
+                     "dryrun.py")
+
+
+def test_the_scan_covers_attention_and_the_dry_run():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    assert set(ATTENTION_MODULES) <= scanned
+
+
 def test_importing_every_port_module_leaves_jax_unloaded():
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
@@ -114,6 +130,12 @@ def test_entry_points_default_to_the_card():
     assert TorchNet(spec, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+    # the dry run: the card unless told, and the CPU passes the gate (an odd
+    # world then fails the next check, before any rank is spawned)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
+    with pytest.raises(ValueError, match="even n_ranks"):
+        dryrun_multichip(3, device="cpu")
 
 
 def test_lrn_launch_counter_stays_zero_on_cpu():
