@@ -10,8 +10,9 @@ fleet that grows, rolls out, heals and shrinks itself on its SLO, and as
 a bulk-inference job over two replicas that share a warm-up cache,
 with ZeRO state sharding and the logical checkpoint layout, and does it
 train and serve a serialized AlexNet graph (the second backend) and serve
-CaffeNet from raw pixels, and does its sequence-parallel attention hold
-exact attention at a 32k-token context?
+CaffeNet from raw pixels, does its sequence-parallel attention hold
+exact attention at a 32k-token context, and are its convergence
+studies' rounds the trainer's rounds?
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -419,10 +420,32 @@ Phases, in order; any failure exits non-zero before the result line:
    of the port's kernels (its products and softmax are PyTorch calls), so
    all stay 0. Prints the `{"attention": {...}}` line before the kernels
    line.
-17. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
+17. The convergence studies (`sparknet_tpu_torch/scripts/parity_synth.py`
+   and `parity_caffenet.py`) at a world of one, cuDNN's deterministic
+   algorithms; launch counters zeroed before and read after each part:
+   - (a) cifar10_quick (b100, float32, seed-0 weights): one study round
+     at W = 1, τ = 10 on synthetic CIFAR is `torch.equal` (loss, params,
+     momentum) to `ParallelTrainer.train_round` at one rank from the same
+     params and batches; then `parity_synth.run` at W = 4, τ = 10 for 5
+     rounds (8000 train, 1000 test images): every round loss finite and
+     the last below the first. maxpool_bwd 1 launch a step (pool1).
+   - (b) full-width CaffeNet (b256, crop 227, 64 classes, bfloat16, the
+     study's solver, dropout on): one study round at W = 1, τ = 5 on
+     seeded uint8 256x256 images, a seeded mean and host-drawn crop
+     offsets is `torch.equal` to the trainer's round on the same prepared
+     batches with the same round key (so the same dropout generators);
+     the card-side `prep` of step 0 is `torch.equal` to the mean
+     subtraction and crop done on the host.
+   - (c) `parity_caffenet.run` at W = 2, τ = 5 for 3 rounds on an
+     in-memory corpus of 2560 such images (256 val): every round loss
+     finite.
+   lrn_fwd / lrn_bwd / maxpool_bwd 2 / 2 / 3 launches a CaffeNet step,
+   plus lrn_fwd's 2 per evaluation forward. Prints each part's steps,
+   synchronized ms and launches.
+18. The kernels line, `{"kernels": [...]}` (lrn_fwd's row carries phases
    12's, 13's and 15's launches and forwards per process, every row phase
-   14's launches per run), then the result line `{"ok": true,
-   "device": {...}}` as the last line of standard output.
+   14's launches per run and phase 17's per part), then the result line
+   `{"ok": true, "device": {...}}` as the last line of standard output.
 
 Exits non-zero without a result when no CUDA card is visible or when the
 `sparknet_tpu_torch` package is not beside this script.
@@ -5760,6 +5783,231 @@ def phase_attention(card: str, device: str = "cuda", seq: int = 32768,
             "kernel_launches": launches, "seconds": secs}
 
 
+def _equal_state(label: str, workers, state) -> None:
+    """A study's one-worker params and momentum against a one-rank
+    trainer's state: torch.equal, tensor for tensor."""
+    import torch
+    if not torch.equal(workers.flat, state.flat_params.detach()):
+        d = (workers.flat - state.flat_params.detach()).abs().max().item()
+        fail(f"studies[{label}]: the study round's params differ from the "
+             f"trainer round's (max |diff| {d:.3e})")
+    for l, lp in state.momentum.items():
+        for p, m in lp.items():
+            if not torch.equal(workers.momentum[0][l][p], m):
+                fail(f"studies[{label}]: momentum {l}/{p} differs from the "
+                     f"trainer round's")
+    if workers.it != state.it:
+        fail(f"studies[{label}]: it {workers.it} != the trainer's "
+             f"{state.it}")
+
+
+def phase_studies(card: str, device: str = "cuda", crop: int = 227,
+                  size: int = 256, batch: int = 256, n_classes: int = 64,
+                  caffe_tau: int = 5, cifar_tau: int = 10,
+                  cifar_workers: int = 4, cifar_rounds: int = 5,
+                  run_workers: int = 2, run_rounds: int = 3) -> dict:
+    """Phase 17 (module docstring): the convergence studies' rounds
+    (`sparknet_tpu_torch/scripts/`) at a world of one, cuDNN's
+    deterministic algorithms. Returns each part's launch counts and
+    steps. The arguments let the phase be rehearsed on the CPU at a
+    small size (counts then 0)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparknet_tpu_torch import precision
+    from sparknet_tpu_torch.data import synth
+    from sparknet_tpu_torch.parallel.mesh import init_data_group
+    from sparknet_tpu_torch.parallel.trainer import ParallelTrainer
+    from sparknet_tpu_torch.scripts import parity_caffenet as pc
+    from sparknet_tpu_torch.scripts import parity_synth as ps
+    from sparknet_tpu_torch.scripts.study import WorkerRounds
+
+    dev = torch.device(device)
+    kernels = device == "cuda"
+    out: dict = {"launches": {}, "steps": {}, "ms": {}}
+    t_phase = time.perf_counter()
+
+    def counted(label, fn, steps, want):
+        """Run `fn` between zeroed and read launch counts; check them
+        against `want` (per-step counts x steps, plus extras) on the
+        card."""
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        if kernels:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        out["launches"][label], out["steps"][label] = counts, steps
+        out["ms"][label] = ms
+        print(f"studies[{label}]: {steps} steps in {ms:.1f} ms (host "
+              f"clock, synchronized), launches {counts} [{card}]",
+              flush=True)
+        if kernels and counts != want:
+            fail(f"studies[{label}]: launches {counts}, want {want}")
+        return res
+
+    def per_step(steps, lrn=0, pool=1, evals=0):
+        return {"lrn_fwd": lrn * steps + lrn * evals, "lrn_fwd_scale": 0,
+                "lrn_bwd": lrn * steps, "maxpool_bwd": pool * steps}
+
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    prev_policy = "bfloat16" if precision.compute_dtype() == \
+        torch.bfloat16 else "float32"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_studies_")
+    group = init_data_group(device, store_path=os.path.join(tmp, "store"),
+                            rank=0, world_size=1)
+    try:
+        # (a) cifar10_quick: one worker's round against the trainer's,
+        # then the study's own run at W workers
+        precision.set_policy("float32")
+        net, cfg = ps.build()
+        b = ps.BATCH
+        x, y = synth.synthetic_cifar(cifar_tau * b, seed=0)
+        mean = x.mean(axis=0)
+        corpus = torch.from_numpy(np.ascontiguousarray(
+            (x - mean).transpose(0, 2, 3, 1)).astype(np.float32)).to(dev)
+        labels = torch.from_numpy(y[:, None]).to(dev)
+        params = net.init_params(torch.Generator().manual_seed(0), dev)
+        idx = torch.arange(cifar_tau * b, device=dev).view(1, cifar_tau, b)
+        workers = WorkerRounds(net, cfg, 1, cifar_tau, params)
+        loss = counted("cifar10_quick study round W=1",
+                       lambda: ps.make_round_fn(workers)(
+                           idx, corpus, labels, keys=(0, 0)),
+                       cifar_tau, per_step(cifar_tau))
+        trainer = ParallelTrainer(net, cfg, group, tau=cifar_tau)
+        state = trainer.state_from_params(params)
+        state, t_loss = counted(
+            "cifar10_quick trainer round",
+            lambda: trainer.train_round(
+                state, {"data": corpus[idx[0]], "label": labels[idx[0]]},
+                (0, 0)), cifar_tau, per_step(cifar_tau))
+        if not torch.equal(loss, t_loss):
+            fail(f"studies[cifar10_quick]: loss {loss.item()} != the "
+                 f"trainer round's {t_loss.item()}")
+        _equal_state("cifar10_quick", workers, state)
+        del workers, trainer, state, corpus
+        steps = cifar_workers * cifar_rounds * cifar_tau
+        r = counted(
+            f"cifar10_quick study run W={cifar_workers} tau={cifar_tau}",
+            lambda: ps.run(cifar_workers, cifar_rounds * cifar_tau, seed=0,
+                           device=device, n_train=2 * cifar_workers
+                           * cifar_tau * b, n_test=10 * b,
+                           tau=cifar_tau), steps, per_step(steps))
+        losses = r["round_losses"]
+        print(f"studies[cifar10_quick run]: round losses {losses}, "
+              f"accuracy {[c['test_accuracy'] for c in r['curve']]} "
+              f"[{card}]", flush=True)
+        if len(losses) != cifar_rounds or not all(
+                math.isfinite(v) for v in losses):
+            fail(f"studies[cifar10_quick run]: round losses {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"studies[cifar10_quick run]: losses not falling "
+                 f"{losses}")
+
+        # (b) full-width CaffeNet, bfloat16: one worker's round (dropout
+        # on) against the trainer's on the same prepared batches and key
+        precision.set_policy("bfloat16")
+        cdt = precision.compute_dtype()
+        net = pc.build_net(batch=batch, crop=crop, n_classes=n_classes)
+        cfg = pc.solver_config()
+        rng = np.random.default_rng(17)
+        n = caffe_tau * batch
+        host = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+        host_mean = rng.uniform(100, 156, (size, size, 3)).astype(
+            np.float32)
+        corpus = torch.from_numpy(host).to(dev)
+        mean_d = torch.from_numpy(host_mean).to(dev)
+        labels = torch.from_numpy(
+            rng.integers(0, n_classes, n).astype(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.permutation(n).reshape(
+            1, caffe_tau, batch)).to(dev)
+        offs = torch.from_numpy(rng.integers(
+            0, size - crop + 1, (1, caffe_tau, batch, 2)).astype(
+                np.int32)).to(dev)
+        params = net.init_params(torch.Generator().manual_seed(0), dev)
+        keys = (1000, 0)
+        workers = WorkerRounds(net, cfg, 1, caffe_tau, params)
+        per_caffe = lambda steps, evals=0: per_step(steps, 2, 3, evals)
+        loss = counted(
+            f"caffenet {crop}/{n_classes} b{batch} bf16 study round W=1",
+            lambda: pc.make_round_fn(workers, crop=crop)(
+                idx, offs, keys, corpus, labels, mean_d),
+            caffe_tau, per_caffe(caffe_tau))
+        data = torch.stack([pc.prep(corpus, mean_d, idx[0, t], offs[0, t],
+                                    crop, cdt) for t in range(caffe_tau)])
+        trainer = ParallelTrainer(net, cfg, group, tau=caffe_tau)
+        state = trainer.state_from_params(params)
+        state, t_loss = counted(
+            f"caffenet {crop}/{n_classes} b{batch} bf16 trainer round",
+            lambda: trainer.train_round(
+                state, {"data": data, "label": labels[idx[0]][..., None]},
+                keys), caffe_tau, per_caffe(caffe_tau))
+        if not torch.equal(loss, t_loss):
+            fail(f"studies[caffenet]: loss {loss.item()} != the trainer "
+                 f"round's {t_loss.item()}")
+        _equal_state("caffenet", workers, state)
+        got = data[0].cpu()
+        i0, o0 = idx[0, 0].cpu().numpy(), offs[0, 0].cpu().numpy()
+        want = torch.stack([torch.from_numpy(np.ascontiguousarray(
+            (host[i].astype(np.float32) - host_mean)[oy:oy + crop,
+                                                      ox:ox + crop]))
+            for i, (oy, ox) in zip(i0, o0)]).to(cdt)
+        if not torch.equal(got, want):
+            fail("studies[caffenet]: the card-side prep differs from the "
+                 "host's mean subtraction and crop")
+        print(f"studies[caffenet]: loss {loss.item():.6f}; the study round "
+              f"torch.equal to the trainer round (loss, params, momentum); "
+              f"prep of step 0 ({batch} images) torch.equal to the host's "
+              f"[{card}]", flush=True)
+        del workers, trainer, state, data, corpus
+
+        # (c) the study's own run on a small in-memory corpus
+        n = run_workers * caffe_tau * batch
+        host = rng.integers(0, 256, (n + batch, size, size, 3),
+                            dtype=np.uint8)
+        lab = rng.integers(0, n_classes, n + batch).astype(np.int32)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        run_data = (put(host[:n]), put(lab[:n]), mean_d, put(host[n:]),
+                    put(lab[n:]), n)
+        del host
+        steps = run_workers * run_rounds * caffe_tau
+        r = counted(
+            f"caffenet study run W={run_workers} tau={caffe_tau}",
+            lambda: pc.run(run_workers, run_rounds * caffe_tau, run_data,
+                           seed=0, tau=caffe_tau, batch=batch, crop=crop,
+                           size=size,
+                           n_classes=n_classes),
+            steps, per_caffe(steps, evals=2))
+        losses = r["round_losses"]
+        print(f"studies[caffenet run]: round losses {losses}, val "
+              f"accuracy {[c['val_accuracy'] for c in r['curve']]} "
+              f"[{card}]", flush=True)
+        if len(losses) != run_rounds or not all(
+                math.isfinite(v) for v in losses):
+            fail(f"studies[caffenet run]: round losses {losses}")
+        del run_data
+    finally:
+        group.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        precision.set_policy(prev_policy)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+        if kernels:
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"studies: phase 17 took {secs:.1f} s; launches by part "
+          f"{json.dumps(out['launches'])} [{card}]", flush=True)
+    out["seconds"] = secs
+    return out
+
+
 def _sum_rows(cases: dict, keys) -> dict:
     """The per-step sum of timed rows (`TIME_KEYS`, bound_ms) over
     `keys`."""
@@ -5826,6 +6074,7 @@ def main() -> None:
     trainers = phase_trainers(card, train["warm_round_s"])
     graph = phase_graph(card)
     attn = phase_attention(card)
+    studies = phase_studies(card)
 
     # the main training path's shapes: batch 256, bfloat16
     lc, pc = lrn_train["cases"], pool["cases"]
@@ -5862,6 +6111,8 @@ def main() -> None:
              k: c["lrn_fwd"] for k, c in sharded["launches"].items()},
          "trainers_phase_launches": {
              k: c["lrn_fwd"] for k, c in trainers["launches"].items()},
+         "studies_phase_launches": {
+             k: c["lrn_fwd"] for k, c in studies["launches"].items()},
          "max_abs_err": max(agg["max_abs_err"], lrn_train["max_abs_err"]),
          **fwd, "timed_at": "norm1 + norm2, batch 256, bfloat16, y only "
                             "(the training step's forward)",
@@ -5901,6 +6152,8 @@ def main() -> None:
              k: c["lrn_bwd"] for k, c in sharded["launches"].items()},
          "trainers_phase_launches": {
              k: c["lrn_bwd"] for k, c in trainers["launches"].items()},
+         "studies_phase_launches": {
+             k: c["lrn_bwd"] for k, c in studies["launches"].items()},
          "max_abs_err": lrn_train["max_abs_err"], **bwd,
          "timed_at": "norm1 + norm2, batch 256, bfloat16, recompute mode",
          "saved_scale_route_launches": train["saved_launches"]["lrn_bwd"],
@@ -5923,6 +6176,8 @@ def main() -> None:
              k: c["maxpool_bwd"] for k, c in sharded["launches"].items()},
          "trainers_phase_launches": {
              k: c["maxpool_bwd"] for k, c in trainers["launches"].items()},
+         "studies_phase_launches": {
+             k: c["maxpool_bwd"] for k, c in studies["launches"].items()},
          "max_abs_err": pool["max_abs_err"], **mp["ties"],
          "timed_at": "pool1 + pool2 + pool5, batch 256, bfloat16, "
                      "tie-heavy input",
@@ -5935,7 +6190,8 @@ def main() -> None:
         "stream_phase_steps": stream["steps"],
         "elastic_phase_steps": elastic["steps"],
         "sharded_phase_steps": sharded["steps"],
-        "trainers_phase_steps": trainers["steps"]}), flush=True)
+        "trainers_phase_steps": trainers["steps"],
+        "studies_phase_steps": studies["steps"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,10 +5,11 @@
   port leaves jax out of `sys.modules` (subprocess). The scan covers the
   second backend (`backend/`, `parallel/graph_trainer.py`, the graph apps)
   and catches an import of `sparknet_tpu.backend`; it covers attention
-  (`ops/attention.py`, `parallel/ring_attention.py`) and the dry run
-  (`dryrun.py`).
+  (`ops/attention.py`, `parallel/ring_attention.py`), the dry run
+  (`dryrun.py`) and the studies (`scripts/`).
 - Entry points run on the card by default and raise without one unless
-  the caller passes device="cpu" (`dryrun_multichip` too).
+  the caller passes device="cpu" (`dryrun_multichip` and the study CLIs
+  too).
 - The LRN wrapper counts kernel launches only: CPU tensors take the plain
   version, never load the kernel library and leave the count at 0.
 - `chip_smoke.py` exits non-zero and prints no result without a card, and
@@ -31,6 +32,8 @@ from sparknet_tpu_torch.device import resolve_device
 from sparknet_tpu_torch.dryrun import dryrun_multichip
 from sparknet_tpu_torch.net_api import TorchNet
 from sparknet_tpu_torch.ops import _build, cuda_lrn
+from sparknet_tpu_torch.scripts import (parity_caffenet, parity_synth,
+                                        soak_stream)
 
 torch.set_num_threads(2)
 
@@ -99,6 +102,20 @@ def test_the_scan_covers_attention_and_the_dry_run():
     assert set(ATTENTION_MODULES) <= scanned
 
 
+#: the studies, which the JAX package keeps in `scripts/` beside jax
+SCRIPT_MODULES = ("scripts/__init__.py", "scripts/study.py",
+                  "scripts/shard_imagenet.py", "scripts/parity_synth.py",
+                  "scripts/parity_caffenet.py", "scripts/soak_stream.py",
+                  "scripts/metrics_summary.py",
+                  "scripts/elastic_momentum_ab.py")
+
+
+def test_the_scan_covers_the_studies():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    assert set(SCRIPT_MODULES) <= scanned
+
+
 def test_importing_every_port_module_leaves_jax_unloaded():
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
@@ -136,6 +153,10 @@ def test_entry_points_default_to_the_card():
         dryrun_multichip(2)
     with pytest.raises(ValueError, match="even n_ranks"):
         dryrun_multichip(3, device="cpu")
+    # the study CLIs raise before they build or write anything
+    for mod in (parity_synth, parity_caffenet, soak_stream):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main([])
 
 
 def test_lrn_launch_counter_stays_zero_on_cpu():
