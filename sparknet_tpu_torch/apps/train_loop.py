@@ -58,6 +58,16 @@ The round pipeline, as the JAX loop runs it by default:
     t_round_ms (queueing the round), t_ckpt_fetch_ms, t_collect_ms (or
     t_collect_bg_ms off the loop), t_log_ms, t_prep_ms (round prep's own
     time, on whichever thread ran it) and h2d_bytes.
+Every round record carries `round_s`, the host's time to queue the round
+(the `train_round` phase: on a card the call returns once the round is
+queued); the heartbeats' and the pod view's straggler input
+(`sparknet_train_round_seconds`) is its `dispatch` share. On a card the
+round's `done` event (after its scalars' copy) is a timing event, and
+from the second flushed round on the record carries `t_card_round_ms`,
+the card's time from the previous flushed round's `done` to this one's:
+the round's period. `images_per_sec`, `images_per_sec_per_chip` and the
+throughput meter's gauge read that period, else (the CPU, a card's first
+round) `round_s`.
 The prep thread's and the collector's exceptions re-raise in the main
 thread.
 
@@ -131,12 +141,24 @@ the JAX package's resharded one.
 
 Observability levers, on rank 0: `trace_out` records the host spans
 (round_prep, h2d_prefetch, the phase timers' sample / train_round / h2d /
-dispatch / checkpoint / eval, checkpoint_write on the writer's thread)
+dispatch / checkpoint / eval, checkpoint_write on the writer's thread;
+inside dispatch the trainers' step, forward, backward, solver and
+exchange spans with round and step, and a graph's per-node op spans)
 and a `flush` instant with round and loss per flushed round
 (`obs/trace.py`), written when the loop ends ("host trace written to
-..."); `profile_dir` runs round start_round + 1 under `torch.profiler`
-(`utils/profiling.py`: CPU and, on the card, CUDA activity) and exports
-its Chrome trace there.
+..."). On a card the tracer also times forward, backward, solver and
+exchange there (`obs/trace.py:CardClock`; at a round boundary, once its
+anchor is 10 s old, a synchronize re-anchors the card's clock to the
+host's): the main thread hands each round's card spans to its record,
+the flush resolves them after the round's `done`, writes them on the
+trace's `card` lane, and adds `card_forward_ms`, `card_backward_ms`,
+`card_solver_ms`, `card_exchange_ms` (card ms summed over the round) and
+`host_lead_ms` (the smallest lead of the host over the card at a span
+edge) to the record; without a tracer there are no such fields and no
+events beyond `done`. `profile_dir` runs round start_round + 1 under
+`torch.profiler` (`utils/profiling.py`: CPU and, on the card, CUDA
+activity) and exports its Chrome trace there; with `trace_out` as well,
+each span is a `record_function` range in it.
 
 The trainer (`resolve_trainer_impl`, the JAX loop's): `trainer_impl`
 "shard_map" is `ParallelTrainer` (the replica layout), "named" is
@@ -411,23 +433,23 @@ def prepare_round_batches(source, rnd: int, tau: int,
 
 def _record_scalars(loss: torch.Tensor, probe: Optional[torch.Tensor],
                     health: Optional[Dict[str, torch.Tensor]]):
-    """A round's scalars (loss, probe, grad norm, nonfinite, the per-rank
-    rows) as one new float32 vector, copied to pinned host memory behind
-    an event on the card; returns (vector, event or None). The copy is
+    """A round's scalars (loss, probe, grad norm, nonfinite) as one new
+    float32 vector, copied to pinned host memory behind a timing event on
+    the card (the round's `done`: the loop times the card's round period
+    between two of them); returns (vector, event or None). The copy is
     taken now, so the next round's in-place update cannot reach it."""
     parts = [loss.reshape(1).float()]
     if probe is not None:
         parts.append(probe.reshape(1).float())
     if health is not None:
         parts += [health["grad_norm"].reshape(1).float(),
-                  health["nonfinite"].reshape(1).float(),
-                  health["nonfinite_by_worker"].reshape(-1).float()]
+                  health["nonfinite"].reshape(1).float()]
     vec = torch.cat(parts)
     if vec.device.type != "cuda":
         return vec, None
     host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
     host.copy_(vec, non_blocking=True)
-    done = torch.cuda.Event()
+    done = torch.cuda.Event(enable_timing=True)
     done.record()
     return host, done
 
@@ -794,31 +816,45 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
     # the previous flush's own cost rides in the next record: a flush
     # cannot time itself into the row it is writing
     last_flush_ms = [0.0]
+    # the last flushed round's `done` event: the card's round period runs
+    # from it to the next one's
+    last_done = [None]
     collect_async = bool(cfg.collect_async)
 
     def flush_round_log(rec) -> None:
         """Emit one deferred round: wait for its scalars (the pipeline's
         real sync), classify it and log it."""
         t_flush0 = time.perf_counter()
-        rnd_, (vec, done), round_s, breakdown = rec
+        rnd_, (vec, done), round_s, breakdown, card_spans = rec
         if done is not None:
             done.synchronize()
         vals = vec.tolist()
         t_collect = time.perf_counter() - t_flush0
         loss = vals[0]
         probe_v = vals[1] if probe is not None else None
-        kv: Dict[str, Any] = {
-            "loss": loss, "round_s": round(round_s, 6),
-            "images_per_sec": round(cfg.tau * lb * n / round_s, 2),
-            "images_per_sec_per_chip": round(
-                meter.images_per_sec_per_chip(), 2)}
+        kv: Dict[str, Any] = {"loss": loss, "round_s": round(round_s, 6)}
+        # the round's period: on a card, the card's time from the last
+        # flushed round's done event to this one's; else (and for a
+        # card's first round) the host's time to queue the round
+        period_s = round_s
+        if done is not None:
+            if last_done[0] is not None:
+                card_ms = last_done[0].elapsed_time(done)
+                kv["t_card_round_ms"] = round(card_ms, 3)
+                period_s = card_ms / 1e3
+            last_done[0] = done
+        meter.add(cfg.tau * lb * n, period_s)
+        kv["images_per_sec"] = round(cfg.tau * lb * n / period_s, 2)
+        kv["images_per_sec_per_chip"] = round(
+            meter.images_per_sec_per_chip(), 2)
+        if card_spans is not None:
+            # the round's card-timed spans, every event done by now
+            kv.update({k: round(v, 4) for k, v in
+                       tracer.card.resolve(card_spans).items()})
         if trainer.compute_health:
             i = 2 if probe is not None else 1
             kv["grad_norm"] = vals[i]
             kv["nonfinite"] = vals[i + 1]
-            by_worker = vals[i + 2:]
-            if max(by_worker) > 0:
-                kv["worst_worker"] = int(np.argmax(by_worker))
         if breakdown is not None:
             if collect_async:
                 breakdown["collect"] = 0.0
@@ -960,6 +996,8 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
     # and written in the finally below, after the writer drained)
     tracer = (obs_trace.start_tracing()
               if cfg.trace_out and rank == 0 else None)
+    if tracer is not None and trainer.device.type == "cuda":
+        tracer.attach_card(trainer.device)  # card-timed spans
     t_member = 0.0  # this round's boundary agreement, for the breakdown
     try:
         if elastic_cfg is not None:
@@ -1040,7 +1078,6 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             if profile_this:
                 log.log(f"profiler trace written to {cfg.profile_dir}", rnd)
             round_s = phase_delta("train_round")
-            meter.add(cfg.tau * lb * n, round_s)
             breakdown = None
             if cfg.telemetry:
                 breakdown = {"data": phase_delta("sample"),
@@ -1055,7 +1092,13 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                     breakdown["member"] = t_member
             if c_rounds is not None:
                 c_rounds.inc()
-            deferred.append((rnd, scalars, round_s, breakdown))
+            card_spans = None
+            if tracer is not None and tracer.card is not None:
+                card_spans = tracer.card.take()
+                # the card's timer drifts from the host's clock: a
+                # synchronize and a new anchor every REANCHOR_S seconds
+                tracer.card.reanchor_if_due()
+            deferred.append((rnd, scalars, round_s, breakdown, card_spans))
             if ckdir and cfg.checkpoint_every and \
                     (rnd + 1) % cfg.checkpoint_every == 0:
                 flush_deferred()  # keep the log round-ordered

@@ -23,9 +23,12 @@ recursion limit). Training state is an explicit dict
   {"variables": {name: tensor}, "slots": {name: tensor}, "it": int}
 so one pure step function (`make_train_step`, gradients by
 `torch.autograd.grad`) drives both `step()` and the distributed trainer
-(`parallel/graph_trainer.py`). Imported TF graphs keep their momentum
-accumulators as variables (`<var>/Momentum`) and have no slots; native
-`Train`-protocol graphs keep them in `slots`.
+(`parallel/graph_trainer.py`). With a tracer on (`obs/trace.py`) each
+computed node is a span named by its op (arg `node`), and a train step's
+loss forward, `autograd.grad` and Momentum apply are the card-timed
+"forward", "backward" and "solver" spans. Imported TF graphs keep their
+momentum accumulators as variables (`<var>/Momentum`) and have no slots;
+native `Train`-protocol graphs keep them in `slots`.
 
 Variables keep the graph's own layouts (NHWC / HWIO / (in, out)) and the
 dtypes JAX gives them with 64-bit types off (`graphdef.jax_dtype`): a
@@ -51,6 +54,7 @@ import torch
 
 from ..device import resolve_device
 from ..model.weights import WeightCollection
+from ..obs import trace as obs_trace
 from ..schema import Field, Schema
 from .graphdef import (ASSIGN_SUFFIX, GraphDef, NodeDef, OPS, TRAIN_STEP,
                        UPDATE_SUFFIX, jax_dtype, to_tensor, torch_dtype)
@@ -194,6 +198,8 @@ class GraphNet:
               device=None) -> Tuple[torch.Tensor, ...]:
         device = self.device if device is None else torch.device(device)
         values: Dict[str, torch.Tensor] = {}
+        # with a tracer on, each computed node is a span named by its op
+        tracer = obs_trace.active_tracer()
         for n in self._topo_order(fetches):
             if n.op == "Placeholder":
                 if n.name in batch:
@@ -215,7 +221,11 @@ class GraphNet:
                 ins = [values[i] for i in n.inputs]
             except KeyError as e:
                 raise ValueError(f"node {n.name!r}: missing input {e}") from e
-            values[n.name] = impl(n, ins)
+            if tracer is None:
+                values[n.name] = impl(n, ins)
+            else:
+                with obs_trace.span(n.op, node=n.name):
+                    values[n.name] = impl(n, ins)
         return tuple(values[f] for f in fetches)
 
     # -- optimizer introspection --------------------------------------------
@@ -358,13 +368,15 @@ class GraphNet:
             merged = dict(variables)
             merged.update(train_vars)
             with torch.enable_grad():
-                loss = self._eval(merged, batch, (loss_name,))[0]
-                grads = torch.autograd.grad(
-                    loss, [train_vars[v] for v in opt.trainable],
-                    allow_unused=True)
+                with obs_trace.card_span("forward"):
+                    loss = self._eval(merged, batch, (loss_name,))[0]
+                with obs_trace.card_span("backward"):
+                    grads = torch.autograd.grad(
+                        loss, [train_vars[v] for v in opt.trainable],
+                        allow_unused=True)
             new_vars = dict(variables)
             new_slots = dict(slots)
-            with torch.no_grad():
+            with torch.no_grad(), obs_trace.card_span("solver"):
                 for v, g in zip(opt.trainable, grads):
                     if g is None:  # no path to the loss: JAX's zero grad
                         g = torch.zeros_like(variables[v])

@@ -23,9 +23,14 @@ applied-update norm of the float variables, sqrt(sum over ranks of each
 rank's own squared change over its τ steps, before the average), as
 "grad_norm" (the gradients live inside the graph's optimizer); and
 "nonfinite", the count of ranks whose losses or averaged float variables
-went NaN/Inf, with "nonfinite_by_worker" the one-hot row per rank the
-port's train loop reads. The mean loss and these ride one all-reduce after
-the average.
+went NaN/Inf, with "nonfinite_by_worker" the one-hot row per rank. The
+mean loss and these ride one all-reduce after the average.
+
+With a tracer on (`obs/trace.py`), step t of round r (it // τ) is a
+"step" span (round=r, step=t) around the train step's card-timed
+"forward", "backward" and "solver" spans (`GraphNet.make_train_step`),
+and the round's "exchange" span runs from the average through the
+scalars' all-reduce.
 
 State: {"variables": {name: tensor}, "slots": {name: tensor}, "it": int},
 this rank's own. At the checkpoint boundary (`checkpoint_tree`) it takes
@@ -52,6 +57,7 @@ import torch
 
 from ..backend.graph_net import GraphNet, TrainState
 from ..backend.graphdef import torch_dtype
+from ..obs import trace as obs_trace
 from .mesh import DataGroup
 from .trainer import PlacedBatches, _host
 
@@ -303,10 +309,12 @@ class GraphTrainer:
         g = self.group
         old = state["variables"]
         floats = sorted(k for k, v in old.items() if v.is_floating_point())
+        rnd = state["it"] // self.tau
         losses = []
         for t in range(self.tau):
-            state, loss = self._step(state, {k: v[t]
-                                             for k, v in placed.items()})
+            with obs_trace.span("step", round=rnd, step=t):
+                state, loss = self._step(state, {k: v[t]
+                                                 for k, v in placed.items()})
             losses.append(loss.float())
         losses = torch.stack(losses)
         with torch.no_grad():
@@ -317,18 +325,19 @@ class GraphTrainer:
                 delta_sq = sum((torch.sum(torch.square(
                     new[k].float() - old[k].float())) for k in floats),
                     torch.zeros((), device=self.device))
-            state = dict(state, variables=self._average(new, floats))
-            parts = [losses.mean()[None]]
-            if self.compute_health:
-                finite = torch.isfinite(losses).all()
-                for k in floats:
-                    finite = finite & torch.isfinite(
-                        state["variables"][k]).all()
-                row = torch.zeros(g.size, device=self.device)
-                row[g.rank] = 1.0
-                parts += [delta_sq.reshape(1).float(),
-                          row * (~finite).float()]
-            scalars = g.all_reduce_sum_(torch.cat(parts))
+            with obs_trace.card_span("exchange", round=rnd):
+                state = dict(state, variables=self._average(new, floats))
+                parts = [losses.mean()[None]]
+                if self.compute_health:
+                    finite = torch.isfinite(losses).all()
+                    for k in floats:
+                        finite = finite & torch.isfinite(
+                            state["variables"][k]).all()
+                    row = torch.zeros(g.size, device=self.device)
+                    row[g.rank] = 1.0
+                    parts += [delta_sq.reshape(1).float(),
+                              row * (~finite).float()]
+                scalars = g.all_reduce_sum_(torch.cat(parts))
         self.last_health = None
         if self.compute_health:
             by_worker = scalars[2:]

@@ -43,7 +43,13 @@ loop's round-prep thread can place round R+1 while round R computes, and
     later copy while round R still reads them.
 With a `phase_timers` installed (the train loop's, under telemetry) a round
 splits its wall time into "h2d" (placement; a pass-through for a placed
-round) and "dispatch" (queueing the τ steps and the average).
+round) and "dispatch" (queueing the τ steps and the average). Inside
+"dispatch", with a tracer on (`obs/trace.py`), step t of round r
+(it // τ) is a "step" span (round=r, step=t) around the card-timed
+"forward" and "backward" (`solver.value_and_grad`) and "solver"
+(`SgdSolver.update`) spans, with "exchange" for sync_sgd's gradient mean;
+the round's "exchange" runs from the τ-boundary average (`_round_end`)
+through the scalars' all-reduce.
 
 At the checkpoint boundary (`checkpoint_tree` / `state_from_checkpoint`)
 the state takes the JAX package's replica layout: every leaf has a leading
@@ -99,6 +105,7 @@ from .. import precision
 from ..model.layers import OpsImpl, seeded_generator, tp_shards_layer
 from ..model.net import (CompiledNet, ParamTree, jax_leaf, jax_param_shapes,
                          port_leaf)
+from ..obs import trace as obs_trace
 from ..solver import SgdSolver, SolverConfig, SolverState, value_and_grad
 from .mesh import DataGroup, make_grid, plan_state_shards
 
@@ -729,23 +736,28 @@ class ParallelTrainer:
         work = self._round_state(state)
         sstate = SolverState(momentum=work.momentum, it=state.it)
         d = self.data
+        rnd = it0 // self.tau
         losses, grad_sqs = [], []
         for t in range(n_steps):
             batch = {k: v[t] for k, v in placed.items()}
             # a model group shares its data index's dropout key
             gen = seeded_generator(keys + (d.rank, t))
-            loss, grads = value_and_grad(loss_fn, work.params, batch, gen)
-            grads = self._fix_tp_grads(grads)
-            if self.compute_health:
-                # this step's LOCAL squared norm, before any average, in
-                # the JAX package's leaf order (sorted names)
-                grad_sqs.append(sum(
-                    torch.sum(torch.square(grads[l][p].float()))
-                    for l in sorted(grads) for p in sorted(grads[l])))
-            if self.mode == "sync_sgd":
-                grads, loss = self._mean_grads(grads, loss)
-            self.solver.update(work.params, sstate, grads,
-                               lr_scale=lr_scale)
+            with obs_trace.span("step", round=rnd, step=t):
+                loss, grads = value_and_grad(loss_fn, work.params, batch,
+                                             gen)
+                grads = self._fix_tp_grads(grads)
+                if self.compute_health:
+                    # this step's LOCAL squared norm, before any average,
+                    # in the JAX package's leaf order (sorted names)
+                    grad_sqs.append(sum(
+                        torch.sum(torch.square(grads[l][p].float()))
+                        for l in sorted(grads) for p in sorted(grads[l])))
+                if self.mode == "sync_sgd":
+                    with obs_trace.card_span("exchange"):
+                        grads, loss = self._mean_grads(grads, loss)
+                with obs_trace.card_span("solver"):
+                    self.solver.update(work.params, sstate, grads,
+                                       lr_scale=lr_scale)
             losses.append(loss.float())
         # the schedule clock advances by the nominal τ on every rank: the
         # lr policy must not diverge across the group
@@ -759,20 +771,21 @@ class ParallelTrainer:
                                 & torch.isfinite(work.flat_params).all()
                                 & torch.isfinite(
                                     work.flat_momentum.float()).all())
-            self._round_end(state, work)
-            # a budget below τ: the mean over the steps this rank ran
-            parts = [(losses.mean() if n_steps == self.tau
-                      else losses.sum() / max(n_steps, 1))[None]]
-            if self.compute_health:
-                finite_avg = torch.isfinite(state.flat_params).all()
-                row = torch.zeros(d.size, device=self.device)
-                row[d.rank] = 1.0
-                parts += [torch.stack(grad_sqs).max()[None],
-                          row * (~finite_local).float(),
-                          (~finite_avg).float()[None]]
-            n_parts = sum(p.numel() for p in parts)
-            parts += self._head_part(state)
-            scalars = d.all_reduce_sum_(torch.cat(parts))
+            with obs_trace.card_span("exchange", round=rnd):
+                self._round_end(state, work)
+                # a budget below τ: the mean over the steps this rank ran
+                parts = [(losses.mean() if n_steps == self.tau
+                          else losses.sum() / max(n_steps, 1))[None]]
+                if self.compute_health:
+                    finite_avg = torch.isfinite(state.flat_params).all()
+                    row = torch.zeros(d.size, device=self.device)
+                    row[d.rank] = 1.0
+                    parts += [torch.stack(grad_sqs).max()[None],
+                              row * (~finite_local).float(),
+                              (~finite_avg).float()[None]]
+                n_parts = sum(p.numel() for p in parts)
+                parts += self._head_part(state)
+                scalars = d.all_reduce_sum_(torch.cat(parts))
         if scalars.numel() > n_parts:
             state.head = scalars[n_parts]
         mean_loss = scalars[0] / d.size

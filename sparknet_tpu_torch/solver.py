@@ -28,6 +28,7 @@ from . import precision
 from .model.layers import LAYER_IMPLS, seeded_generator
 from .model.net import CompiledNet, ParamTree
 from .model.spec import ParamSpec
+from .obs import trace as obs_trace
 
 
 @dataclass(frozen=True)
@@ -105,10 +106,14 @@ class SolverState:
 def value_and_grad(loss_fn, params: ParamTree, batch, generator=None
                    ) -> Tuple[torch.Tensor, ParamTree]:
     """(loss, grads) of `loss_fn(params, batch, generator)` by autograd;
-    every param must require grad. grads has params' tree shape."""
+    every param must require grad. grads has params' tree shape. The
+    forward and the backward are the tracer's card-timed "forward" and
+    "backward" spans."""
     leaves = [(l, p, w) for l, lp in params.items() for p, w in lp.items()]
-    loss, _ = loss_fn(params, batch, generator)
-    gs = torch.autograd.grad(loss, [w for _, _, w in leaves])
+    with obs_trace.card_span("forward"):
+        loss, _ = loss_fn(params, batch, generator)
+    with obs_trace.card_span("backward"):
+        gs = torch.autograd.grad(loss, [w for _, _, w in leaves])
     grads: ParamTree = {}
     for (l, p, _), g in zip(leaves, gs):
         grads.setdefault(l, {})[p] = g
