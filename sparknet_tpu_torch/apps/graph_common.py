@@ -72,7 +72,8 @@ def train_graph(cfg: RunConfig, graph: GraphDef, train_ds, test_ds=None,
             check_input_shape(net, "data", expect_data_shape)
         trainer = GraphTrainer(net, group, tau=cfg.tau,
                                compute_health=(cfg.health is not None
-                                               and cfg.health.enabled))
+                                               and cfg.health.enabled),
+                               donate_batches=cfg.donate_batches)
         log.log(f"graph backend: {len(net.variable_names)} variables; "
                 f"rank {group.rank} of {group.size} on {group.device}; "
                 f"tau={cfg.tau} local_batch={cfg.local_batch} "

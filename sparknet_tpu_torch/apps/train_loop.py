@@ -41,10 +41,11 @@ The round pipeline, as the JAX loop runs it by default:
     thread while round R runs; `prefetch=False` prepares every round
     inline on the main thread instead (the synchronous loop);
   - `h2d_prefetch`: that thread also places round R+1 on the card
-    (`ParallelTrainer.place_batches`: pinned staging, a copy stream, an
-    event the compute stream waits on), so the round's `h2d` phase is a
-    pass-through; `donate_batches` rotates placed rounds through two
-    device slots (parallel/trainer.py);
+    (the trainer's `place_batches`, `ParallelTrainer`'s or
+    `GraphTrainer`'s, both through `parallel/trainer.py:BatchPlacer`:
+    pinned staging, a copy stream, an event the compute stream waits on),
+    so the round's `h2d` phase is a pass-through; `donate_batches`
+    rotates placed rounds through two device slots;
   - the deferred fetch: each round leaves a record (round, loss, probe,
     health, breakdown) whose scalars are copied off the card
     asynchronously; records are flushed — logged and classified by the
@@ -57,7 +58,9 @@ The round pipeline, as the JAX loop runs it by default:
     t_data_ms (the main thread's wait for round prep), t_h2d_ms,
     t_round_ms (queueing the round), t_ckpt_fetch_ms, t_collect_ms (or
     t_collect_bg_ms off the loop), t_log_ms, t_prep_ms (round prep's own
-    time, on whichever thread ran it) and h2d_bytes.
+    time, on whichever thread ran it), h2d_bytes and h2d_async_bytes
+    (those of them that crossed through pinned staging on the copy
+    stream: all on a card, 0 on the CPU).
 Every round record carries `round_s`, the host's time to queue the round
 (the `train_round` phase: on a card the call returns once the round is
 queued); the heartbeats' and the pod view's straggler input
@@ -862,10 +865,11 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
             else:
                 breakdown["collect"] = t_collect
             breakdown["log"] = last_flush_ms[0] / 1e3
-            h2d_bytes = breakdown.pop("h2d_bytes")
+            h2d = {k: breakdown.pop(k)
+                   for k in ("h2d_bytes", "h2d_async_bytes")}
             kv.update({f"t_{k}_ms": round(v * 1e3, 3)
                        for k, v in breakdown.items()})
-            kv["h2d_bytes"] = h2d_bytes
+            kv.update(h2d)
             # the straggler inputs: /status, the gauges, the pod beat
             vitals["round_s"] = round(breakdown["round"], 6)
             vitals["data_wait_s"] = round(breakdown["data"], 6)
@@ -1087,7 +1091,8 @@ def run_loop(cfg: RunConfig, trainer: ParallelTrainer,
                              # delayed this one
                              "ckpt_fetch": phase_delta("checkpoint"),
                              "prep": info["prep_s"],
-                             "h2d_bytes": trainer.h2d_bytes}
+                             "h2d_bytes": trainer.h2d_bytes,
+                             "h2d_async_bytes": trainer.h2d_async_bytes}
                 if elastic_cfg is not None:
                     breakdown["member"] = t_member
             if c_rounds is not None:

@@ -32,6 +32,13 @@ With a tracer on (`obs/trace.py`), step t of round r (it // τ) is a
 and the round's "exchange" span runs from the average through the
 scalars' all-reduce.
 
+Placement (`place_batches`) on a card is `ParallelTrainer`'s, through the
+same `BatchPlacer`: pinned staging, a copy stream of the trainer's own,
+two donated device slots under `donate_batches` (else fresh buffers), and
+the `ready` event the compute stream waits on before step 0. Only the
+dtype rule is the graph's: each input crosses in its host dtype and is
+cast on the card to its placeholder's dtype.
+
 State: {"variables": {name: tensor}, "slots": {name: tensor}, "it": int},
 this rank's own. At the checkpoint boundary (`checkpoint_tree`) it takes
 the JAX package's replica layout, keys `variables/<name>`, `slots/<name>`
@@ -59,7 +66,7 @@ from ..backend.graph_net import GraphNet, TrainState
 from ..backend.graphdef import torch_dtype
 from ..obs import trace as obs_trace
 from .mesh import DataGroup
-from .trainer import PlacedBatches, _host
+from .trainer import BatchPlacer, PlacedBatches, _host
 
 
 class GraphTrainer:
@@ -78,7 +85,7 @@ class GraphTrainer:
     def __init__(self, net: GraphNet, group: DataGroup, tau: int = 10,
                  loss_name: Optional[str] = None,
                  acc_name: Optional[str] = "accuracy",
-                 compute_health: bool = True):
+                 compute_health: bool = True, donate_batches: bool = False):
         a, b = net.device, group.device
         if a.type != b.type or None not in (a.index, b.index) \
                 and a.index != b.index:
@@ -97,8 +104,12 @@ class GraphTrainer:
         self.last_health: Optional[Dict[str, torch.Tensor]] = None
         #: optional PhaseTimers: train_round then times "h2d" and "dispatch"
         self.phase_timers = None
+        self._placer = BatchPlacer(self.device, donate_batches)
         #: bytes the last round copied to the device (0 on the CPU)
         self.h2d_bytes = 0
+        #: of those, the bytes that crossed through pinned staging on the
+        #: copy stream
+        self.h2d_async_bytes = 0
 
     # -- state ---------------------------------------------------------------
 
@@ -246,14 +257,10 @@ class GraphTrainer:
 
     # -- one round -----------------------------------------------------------
 
-    def _place_inputs(self, batch: Mapping[str, Any], lead: int
-               ) -> Tuple[Dict[str, torch.Tensor], int]:
-        """The graph's inputs of `batch` on the device in the
-        placeholders' dtypes, and the bytes copied: each input crosses in
-        its host dtype (int8 pixels, a bfloat16 round) and is cast on the
-        device (the graph's ops cast their operands to the compute dtype
-        themselves). `lead` > 0 checks the leading (τ) dim."""
-        out, nbytes = {}, 0
+    def _inputs(self, batch: Mapping[str, Any], lead: int):
+        """(name, tensor, placeholder dtype) of each graph input of `batch`,
+        the tensor where the caller left it. `lead` > 0 checks the leading
+        (τ) dim."""
         dtypes = self.net.input_dtypes()
         for name in self.net.input_names:
             if name not in batch:
@@ -264,22 +271,52 @@ class GraphTrainer:
             if lead and (t.ndim == 0 or t.shape[0] != lead):
                 raise ValueError(f"{name}: leading dim "
                                  f"{tuple(t.shape)[:1]} != tau {lead}")
+            yield name, t, torch_dtype(dtypes[name])
+
+    def _place_inputs(self, batch: Mapping[str, Any], lead: int
+               ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """The graph's inputs of `batch` on the device in the
+        placeholders' dtypes, and the bytes copied, in blocking copies on
+        the current stream (an eval batch; a round on the CPU): each input
+        crosses in its host dtype (int8 pixels, a bfloat16 round) and is
+        cast on the device (the graph's ops cast their operands to the
+        compute dtype themselves)."""
+        out, nbytes = {}, 0
+        for name, t, want in self._inputs(batch, lead):
             if t.device.type == "cpu" and self.device.type == "cuda":
                 nbytes += t.numel() * t.element_size()
-            out[name] = t.to(self.device).to(torch_dtype(dtypes[name]))
+            out[name] = t.to(self.device).to(want)
         return out, nbytes
 
     def place_batches(self, batches: Mapping[str, Any],
                       compute_dt: Optional[torch.dtype] = None
                       ) -> PlacedBatches:
         """This rank's [tau, local_batch, ...] batches on the device, in the
-        graph's input dtypes (blocking copies). A `PlacedBatches` passes
-        through. `compute_dt` is accepted for the trainer interface: the
-        graph's ops cast to the compute dtype themselves."""
+        graph's input dtypes. On a card, host inputs go as
+        `ParallelTrainer`'s do (`BatchPlacer`): pinned staging, copies in
+        their host dtype on the trainer's copy stream into a donated slot
+        (`donate_batches`) or fresh buffers, the cast there, and the
+        `ready` event that `train_round` makes the compute stream wait on;
+        so the train loop's round-prep thread places round R+1 while round
+        R computes. Inputs already on the card are cast where they are; on
+        the CPU every input is. A `PlacedBatches` passes through.
+        `compute_dt` is accepted for the trainer interface: the graph's ops
+        cast to the compute dtype themselves."""
         if isinstance(batches, PlacedBatches):
             return batches
-        placed, nbytes = self._place_inputs(batches, self.tau)
-        return PlacedBatches(placed, nbytes=nbytes)
+        if self.device.type != "cuda":
+            placed, nbytes = self._place_inputs(batches, self.tau)
+            return PlacedBatches(placed, nbytes=nbytes)
+        placed: Dict[str, torch.Tensor] = {}
+        todo: Dict[str, Tuple[torch.Tensor, torch.dtype]] = {}
+        for name, t, want in self._inputs(batches, self.tau):
+            if t.device.type == "cpu":
+                todo[name] = (t, want)
+            else:
+                placed[name] = t.to(self.device).to(want)
+        if not todo:
+            return PlacedBatches(placed)
+        return self._placer.copy(placed, todo)
 
     def train_round(self, state: TrainState, batches: Mapping[str, Any],
                     rng: Any = None, lr_scale: float = 1.0,
@@ -306,6 +343,7 @@ class GraphTrainer:
     def _round(self, state: TrainState, placed: PlacedBatches
                ) -> Tuple[TrainState, torch.Tensor]:
         self.h2d_bytes = placed.nbytes
+        self.h2d_async_bytes = self._placer.begin(placed)
         g = self.group
         old = state["variables"]
         floats = sorted(k for k, v in old.items() if v.is_floating_point())
@@ -316,6 +354,7 @@ class GraphTrainer:
                 state, loss = self._step(state, {k: v[t]
                                                  for k, v in placed.items()})
             losses.append(loss.float())
+        self._placer.end(placed)
         losses = torch.stack(losses)
         with torch.no_grad():
             new = state["variables"]

@@ -25,8 +25,9 @@ are one small all-reduce after the param average.
 Placement (`place_batches`, the H2D half of a round; the JAX package's
 l.809-889). A round's host arrays are cast to the compute dtype, staged in
 pinned host memory and copied with `non_blocking=True` on a copy stream of
-the trainer's own; an event recorded after the copies is what the compute
-stream waits on before the round's first step reads the batch. So the train
+the trainer's own (`BatchPlacer`, which `GraphTrainer` places through
+too); an event recorded after the copies is what the compute stream waits
+on before the round's first step reads the batch. So the train
 loop's round-prep thread can place round R+1 while round R computes, and
 `train_round` takes either host arrays (placed inline) or a
 `PlacedBatches`. Buffer lifetimes across the two streams:
@@ -171,6 +172,99 @@ class PlacedBatches(dict):
         self.nbytes = nbytes
 
 
+class BatchPlacer:
+    """A trainer's placement on the card (the module docstring's
+    "Placement"): it owns the copy stream, the two donated slots ({input:
+    tensor} each) and the event that frees each one. The trainer picks
+    each input's device dtype; `copy` moves the host rows and casts on the
+    card, `begin` and `end` bracket the round that reads them. Used by
+    `ParallelTrainer` and `GraphTrainer`."""
+
+    def __init__(self, device: torch.device, donate: bool):
+        self.device = device
+        self.donate = bool(donate)
+        self._stream = None
+        self._slots = [None, None]
+        self._slot_free = [None, None]
+        self._next_slot = 0
+        self._lock = threading.Lock()
+
+    def copy(self, placed: Dict[str, torch.Tensor],
+             todo: Dict[str, Tuple[torch.Tensor, torch.dtype]]
+             ) -> PlacedBatches:
+        """Pinned staging, then async copies on the copy stream into the
+        next donated slot or fresh buffers; `todo` maps each input to its
+        host tensor and the dtype it takes on the card. An input whose
+        host dtype is not that one (int8 pixels) crosses in its own dtype
+        and is cast on the card. Returns the round, `placed` included,
+        with the event the compute stream waits on."""
+        with self._lock, torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            stream = self._stream
+            slot = None
+            if self.donate:
+                slot = self._next_slot
+                self._next_slot ^= 1
+                if self._slot_free[slot] is not None:
+                    # the round that last read this slot has been queued;
+                    # its copy waits for it on the device, not the host
+                    stream.wait_event(self._slot_free[slot])
+            nbytes = 0
+            with torch.cuda.stream(stream):
+                for name, (t, want) in todo.items():
+                    stage = torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                    if not stage.is_pinned():
+                        raise RuntimeError(f"{name}: pinned staging "
+                                           f"failed; refusing a pageable "
+                                           f"copy")
+                    stage.copy_(t)
+                    nbytes += stage.numel() * stage.element_size()
+                    dev = None
+                    if slot is not None:
+                        cur = (self._slots[slot] or {}).get(name)
+                        if cur is not None and cur.shape == t.shape and \
+                                cur.dtype == want:
+                            dev = cur
+                    if dev is None:
+                        dev = torch.empty(t.shape, dtype=want,
+                                          device=self.device)
+                        if slot is not None:
+                            self._slots[slot] = dict(self._slots[slot] or {},
+                                                     **{name: dev})
+                    if t.dtype == want:
+                        dev.copy_(stage, non_blocking=True)
+                    else:
+                        dev.copy_(stage.to(self.device, non_blocking=True))
+                    placed[name] = dev
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            return PlacedBatches(placed, ready=ready, slot=slot,
+                                 nbytes=nbytes)
+
+    def begin(self, placed: PlacedBatches) -> int:
+        """Before a round's first step: the compute stream waits on the
+        round's copies, and its buffers are marked as used there. Returns
+        the bytes that crossed through pinned staging on the copy stream
+        (0 for a round placed otherwise: the CPU)."""
+        if placed.ready is None:
+            return 0
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(placed.ready)
+        for t in placed.values():
+            t.record_stream(compute)
+        return placed.nbytes
+
+    def end(self, placed: PlacedBatches) -> None:
+        """After a round's last read of its batches: a donated slot is
+        free once the compute stream gets past this point."""
+        if placed.slot is not None:
+            free = torch.cuda.Event()
+            free.record(torch.cuda.current_stream(self.device))
+            self._slot_free[placed.slot] = free
+
+
 class ParallelTrainer:
     """τ-round data-parallel trainer over a `DataGroup`.
 
@@ -225,15 +319,12 @@ class ParallelTrainer:
         self.donate_batches = bool(donate_batches)
         #: optional PhaseTimers: train_round then times "h2d" and "dispatch"
         self.phase_timers = None
-        # placement state (CUDA): the copy stream, the two donated slots
-        # ({input: tensor} each) and the event that frees each one
-        self._copy_stream = None
-        self._slots = [None, None]
-        self._slot_free = [None, None]
-        self._next_slot = 0
-        self._place_lock = threading.Lock()
+        self._placer = BatchPlacer(self.device, self.donate_batches)
         #: bytes the last round copied to the device (0 on the CPU)
         self.h2d_bytes = 0
+        #: of those, the bytes that crossed through pinned staging on the
+        #: copy stream
+        self.h2d_async_bytes = 0
 
     #: the checkpoint layout: every leaf carries the leading [world] axis
     #: (the sharded trainer's is "logical"), stamped into `extra["layout"]`
@@ -594,7 +685,7 @@ class ParallelTrainer:
             return PlacedBatches(placed)
         if not todo:
             return PlacedBatches(placed)
-        return self._copy_to_device(placed, todo)
+        return self._placer.copy(placed, todo)
 
     def _check_placed(self, name: str, t: torch.Tensor,
                       want: torch.dtype) -> None:
@@ -609,59 +700,6 @@ class ParallelTrainer:
         if t.ndim == 0 or t.shape[0] != self.tau:
             raise ValueError(f"{name}: leading dim {tuple(t.shape)[:1]} != "
                              f"tau {self.tau}")
-
-    def _copy_to_device(self, placed: Dict[str, torch.Tensor],
-                        todo: Dict[str, Tuple[torch.Tensor, torch.dtype]]
-                        ) -> PlacedBatches:
-        """Pinned staging, then async copies on the copy stream into the
-        next donated slot or fresh buffers; an input whose host dtype is
-        not the one the net takes (int8 pixels) crosses in its own dtype
-        and is cast on the card. Returns the round with the event the
-        compute stream waits on."""
-        with self._place_lock, torch.cuda.device(self.device):
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
-            stream = self._copy_stream
-            slot = None
-            if self.donate_batches:
-                slot = self._next_slot
-                self._next_slot ^= 1
-                if self._slot_free[slot] is not None:
-                    # the round that last read this slot has been queued;
-                    # its copy waits for it on the device, not the host
-                    stream.wait_event(self._slot_free[slot])
-            nbytes = 0
-            with torch.cuda.stream(stream):
-                for name, (t, want) in todo.items():
-                    stage = torch.empty(t.shape, dtype=t.dtype,
-                                        pin_memory=True)
-                    if not stage.is_pinned():
-                        raise RuntimeError(f"{name}: pinned staging "
-                                           f"failed; refusing a pageable "
-                                           f"copy")
-                    stage.copy_(t)
-                    nbytes += stage.numel() * stage.element_size()
-                    dev = None
-                    if slot is not None:
-                        cur = (self._slots[slot] or {}).get(name)
-                        if cur is not None and cur.shape == t.shape and \
-                                cur.dtype == want:
-                            dev = cur
-                    if dev is None:
-                        dev = torch.empty(t.shape, dtype=want,
-                                          device=self.device)
-                        if slot is not None:
-                            self._slots[slot] = dict(self._slots[slot] or {},
-                                                     **{name: dev})
-                    if t.dtype == want:
-                        dev.copy_(stage, non_blocking=True)
-                    else:
-                        dev.copy_(stage.to(self.device, non_blocking=True))
-                    placed[name] = dev
-                ready = torch.cuda.Event()
-                ready.record(stream)
-            return PlacedBatches(placed, ready=ready, slot=slot,
-                                 nbytes=nbytes)
 
     def _to_device(self, batch: Mapping[str, Any]
                    ) -> Dict[str, torch.Tensor]:
@@ -724,11 +762,7 @@ class ParallelTrainer:
         n_steps = self.tau if my_tau is None else my_tau
         it0 = state.it
         self.h2d_bytes = placed.nbytes
-        if placed.ready is not None:
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(placed.ready)
-            for t in placed.values():
-                t.record_stream(compute)
+        self.h2d_async_bytes = self._placer.begin(placed)
         loss_fn = self.net.loss_fn(self.loss_blob, ops=self.ops,
                                    tp_group=self.model, tp_size=self.tp)
         # the buffers the steps update: the state's own, or (a ZeRO state
@@ -789,10 +823,7 @@ class ParallelTrainer:
         if scalars.numel() > n_parts:
             state.head = scalars[n_parts]
         mean_loss = scalars[0] / d.size
-        if placed.slot is not None:
-            free = torch.cuda.Event()
-            free.record(torch.cuda.current_stream(self.device))
-            self._slot_free[placed.slot] = free
+        self._placer.end(placed)
         self.last_health = None
         health = None
         if self.compute_health:

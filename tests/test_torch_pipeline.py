@@ -268,7 +268,7 @@ def test_the_levers_leave_the_trajectory_bit_for_bit(tmp_path,
     assert all("t_collect_bg_ms" not in r for r in off if "loss" in r)
     for r in rounds_on:
         for k in ("t_data_ms", "t_round_ms", "t_prep_ms", "t_log_ms",
-                  "t_ckpt_fetch_ms", "h2d_bytes"):
+                  "t_ckpt_fetch_ms", "h2d_bytes", "h2d_async_bytes"):
             assert k in r and r[k] >= 0, (k, r)
     plain, _ = _train(tmp_path, "quiet", telemetry=False)
     assert semantic(plain) == semantic(on)
@@ -427,7 +427,7 @@ def test_on_the_card_the_levers_leave_the_trajectory_bit_for_bit(tmp_path):
         assert torch.equal(p_on, p_off)
         rounds = [r for r in on if "loss" in r]
         assert all(r["t_h2d_ms"] < 50.0 for r in rounds[1:]), rounds
-        assert all(r["h2d_bytes"] == TAU * LB * (28 * 28 * 4 + 4)
-                   for r in rounds)
+        assert all(r["h2d_bytes"] == r["h2d_async_bytes"]
+                   == TAU * LB * (28 * 28 * 4 + 4) for r in rounds)
     finally:
         torch.backends.cudnn.deterministic = False
