@@ -59,7 +59,7 @@ def reference_readings(cell, seeds, world: int, parts, device) -> list:
             got = follow(cell.config, cell.traffic, seed, world,
                          CHECK_ROUNDS, device, **kw)
             rows.append((part, seed, compare.numbers(
-                got, ref, compare.unit_axis(cell.config))))
+                got, ref, compare.unit_axes(cell.config, ref["first"]))))
             print(json.dumps({"part": part, "seed": seed, **rows[-1][2]}),
                   flush=True)
     return rows

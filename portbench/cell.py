@@ -34,7 +34,6 @@ from typing import List, Optional
 import torch
 
 from . import compare, devtime, load
-from .compare import unit_axis
 
 CHECK_ROUNDS = 3
 PERIOD_FROM = 4
@@ -265,7 +264,7 @@ def run_rank(cell, seed: int, seconds: Optional[float], trace: bool,
     from .reference.train import follow
     ref = follow(cell.config, cell.traffic, seed, world, CHECK_ROUNDS, dev)
     nums = compare.numbers(_program_side(log, hook), ref,
-                           unit_axis(cell.config))
+                           compare.unit_axes(cell.config, ref["first"]))
     out["checks"] = compare.report(nums, cell.limits)
     out["correct"] = compare.decide(nums, cell.limits) and failed == 0
     out["forbidden"] = forbidden_modules()
@@ -286,7 +285,8 @@ def _check_only(cell, seed, world, rank, dev, log, hook, state) -> dict:
     from .reference.train import follow
     ref = follow(cell.config, cell.traffic, seed, world, CHECK_ROUNDS, dev)
     return {"rank": rank, "numbers": compare.numbers(
-        _program_side(log, hook), ref, unit_axis(cell.config))}
+        _program_side(log, hook), ref,
+        compare.unit_axes(cell.config, ref["first"]))}
 
 
 def rank_main(rank: int, world: int, args: dict, queue) -> None:
@@ -357,7 +357,7 @@ def spawn(cell, seed: int, seconds: float, trace: bool, device: str,
                 errors.append("the ranks did not finish in time")
                 break
             try:
-                kind, rank, payload = queue.get(timeout=min(left, 5.0))
+                status, rank, payload = queue.get(timeout=min(left, 5.0))
             except queue_mod.Empty:
                 dead = [p.exitcode for p in procs
                         if p.exitcode not in (None, 0)]
@@ -365,7 +365,7 @@ def spawn(cell, seed: int, seconds: float, trace: bool, device: str,
                     errors.append(f"a rank exited with {dead[0]} before "
                                   f"reporting")
                 continue
-            if kind == "ok":
+            if status == "ok":
                 results[rank] = payload
             else:
                 errors.append(f"rank {rank}:\n{payload}")

@@ -11,7 +11,8 @@ reference's (`reference/train.py`), both from the same weights and rows:
                 it): by the worst leaf, | |m_prog| - |m_ref| | over the
                 larger of |m_ref| of that leaf and of the median leaf;
   grad_unit_gap the same first gradient by output unit (a weight's
-                slice of one output channel or feature, a bias whole):
+                slice along its output axis, which the configuration's
+                backend names; a 1-D leaf such as a bias whole):
                 the median over every unit of the kept leaves of
                 | |m_prog| - |m_ref| | over the larger of the unit's |m_ref|
                 and the median unit's of its leaf. A gap of norms is of
@@ -37,9 +38,11 @@ moves it clear of the program's own spread (PERF.md gives its readings).
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Mapping
 
 import torch
+
+from . import load
 
 #: the numbers, in the order they are printed
 NAMES = ("loss_gap", "grad_gap", "grad_unit_gap", "momentum_gap",
@@ -75,27 +78,29 @@ def leaf_gaps(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
 
 
 def unit_gaps(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
-              keys: List[str], unit_axis: int) -> torch.Tensor:
-    """Every output unit's norm gap (module docstring), of all `keys`."""
+              keys: List[str], axes: Mapping[str, int]) -> torch.Tensor:
+    """Every output unit's norm gap (module docstring), of all `keys`;
+    `axes[k]` is leaf k's output axis, and a 1-D leaf is one unit."""
     out = []
     for k in keys:
         a, b = prog[k].double(), ref[k].double()
         if b.ndim == 1:
             a, b = a[None], b[None]
         else:
-            a, b = (a.movedim(unit_axis, 0).reshape(a.shape[unit_axis], -1),
-                    b.movedim(unit_axis, 0).reshape(b.shape[unit_axis], -1))
+            ax = axes[k]
+            a, b = (a.movedim(ax, 0).reshape(a.shape[ax], -1),
+                    b.movedim(ax, 0).reshape(b.shape[ax], -1))
         na, nb = a.norm(dim=1), b.norm(dim=1)
         floor = torch.clamp(nb.median(), min=1e-300)
         out.append((na - nb).abs() / torch.maximum(nb, floor))
     return torch.cat(out)
 
 
-def numbers(prog: dict, ref: dict, unit_axis: int = 0) -> Dict[str, float]:
+def numbers(prog: dict, ref: dict,
+            axes: Mapping[str, int]) -> Dict[str, float]:
     """`prog` and `ref`: {"loss": [floats], "first", "momentum",
-    "params": {leaf: tensor}}; `ref` also holds "init". `unit_axis` is the
-    weights' output axis (0 for Caffe's OIHW and (out, in), -1 for a
-    graph's HWIO and (in, out))."""
+    "params": {leaf: tensor}}; `ref` also holds "init". `axes`: each
+    leaf's output axis (`unit_axes`)."""
     if len(prog["loss"]) != len(ref["loss"]):
         raise ValueError(f"{len(prog['loss'])} program losses, "
                          f"{len(ref['loss'])} reference losses")
@@ -113,15 +118,17 @@ def numbers(prog: dict, ref: dict, unit_axis: int = 0) -> Dict[str, float]:
     first = leaf_gaps(prog["first"], ref["first"], keys)
     return {"loss_gap": loss_gap, "grad_gap": max(first),
             "grad_unit_gap": float(unit_gaps(prog["first"], ref["first"],
-                                             keys, unit_axis).median()),
+                                             keys, axes).median()),
             "momentum_gap": max(leaf_gaps(prog["momentum"], ref["momentum"],
                                           keys)),
             "change_gap": max(leaf_gaps(change_p, change_r, keys))}
 
 
-def unit_axis(config: dict) -> int:
-    """The output axis of a configuration's weights."""
-    return 0 if config["backend"] == "caffe" else -1
+def unit_axes(config: dict, keys) -> Dict[str, int]:
+    """{key: the output axis of leaf `key`}, from the configuration
+    backend's `unit_axis` (reference/<backend>.py)."""
+    backend = load.reference(config)
+    return {k: backend.unit_axis(config, k) for k in keys}
 
 
 def decide(nums: Dict[str, float], limits: Dict[str, float]) -> bool:

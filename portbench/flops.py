@@ -1,10 +1,17 @@
-"""The yardstick's arithmetic: training FLOPs per image, the card's peaks,
+"""The yardstick's arithmetic: training FLOPs per sample, the card's peaks,
 and the bytes and operations a kernel's work needs.
 
-FLOPs are a frozen copy of `sparknet_tpu_torch/utils/flops.py`'s rule,
-read from a configuration's layer list instead of the port's net: every
-convolution 2·OH·OW·k²·(Cin/group)·Cout, every inner product or MatMul
-2·in·out, forward; training is three times that (the backward's data and
+A sample is what `local_batch` counts in the traffic: one image, or, for
+a configuration of sequences of one fixed length L, one sequence (then
+tokens = L x samples). The metrics keep the names they were given for
+images (`train_img_per_s`, `ctx.images`).
+
+FLOPs: each configuration backend counts its forward for one sample,
+`forward_flops_per_sample` of reference/<backend>.py, read from the
+configuration's layer list. The `caffe` and `graph` counts are a frozen
+copy of `sparknet_tpu_torch/utils/flops.py`'s rule: every convolution
+2·OH·OW·k²·(Cin/group)·Cout, every inner product or MatMul 2·in·out,
+forward. Training is three times the forward (the backward's data and
 weight gradients are each a product of the forward's size). Elementwise
 layers are left out, so a share of the peak from these counts is slightly
 low.
@@ -18,7 +25,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
-from .inputs import caffe_shapes, graph_shapes
+from . import load
 
 TRAIN_FWD_MULT = 3.0
 
@@ -41,32 +48,12 @@ def peaks(device_name: str) -> Optional[Dict[str, float]]:
 
 
 def forward_flops_per_image(config: dict) -> float:
-    total = 0.0
-    if config["backend"] == "caffe":
-        shapes = caffe_shapes(config)
-        for layer in config["layers"]:
-            name = layer["name"]
-            if layer["type"] == "Convolution":
-                p = layer["convolution_param"]
-                _, cout, h, w = shapes[name]
-                cin = shapes[f"{name}:in"][1] // p.get("group", 1)
-                total += 2.0 * h * w * p["kernel_size"] ** 2 * cin * cout
-            elif layer["type"] == "InnerProduct":
-                fan_in = math.prod(shapes[f"{name}:in"][1:])
-                total += 2.0 * fan_in * shapes[name][1]
-        return total
-    shapes = graph_shapes(config)
-    for layer in config["layers"]:
-        name = layer["name"]
-        if layer["op"] == "Conv2D":
-            _, h, w, cout = shapes[name]
-            total += 2.0 * h * w * layer["kernel"] ** 2 * layer["in"] * cout
-        elif layer["op"] == "MatMul":
-            total += 2.0 * layer["in"] * layer["out"]
-    return total
+    """The forward's FLOPs for one sample (module docstring)."""
+    return load.reference(config).forward_flops_per_sample(config)
 
 
 def train_flops_per_image(config: dict) -> float:
+    """Training FLOPs for one sample: three times the forward's."""
     return TRAIN_FWD_MULT * forward_flops_per_image(config)
 
 

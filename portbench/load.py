@@ -6,6 +6,14 @@
                   and its limit)
   metric          metrics/<metric>.py, whose `read(ctx)` returns the
                   metric's value or None when it finds nothing to read
+  adapter         adapters/<backend>.py (the configuration's `backend`):
+                  `Program`, the port's entry point for that kind of
+                  configuration (`programs.py`)
+  reference       reference/<backend>.py: what both sides need of that
+                  kind of configuration (`reference/__init__.py`)
+  traffic kind    kinds/<kind>.py (the traffic's `kind`): `check(traffic)`
+                  and `make_round(config, traffic, seed, rank, rnd,
+                  device)` (`inputs.py`)
 
 A cell reports its end-to-end metrics (those with a `workloads` key only
 where it lists the cell), and with --trace 1 the per-layer metrics that
@@ -14,6 +22,7 @@ cell reports.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from dataclasses import dataclass
@@ -81,3 +90,30 @@ def metric_reader(name: str) -> Callable:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def _module(group: str, name: str):
+    """`portbench.<group>.<name>`: <group>/<name>.py, or the module of that
+    name already in `sys.modules`."""
+    full = f"{__package__}.{group}.{name}"
+    try:
+        return importlib.import_module(full)
+    except ModuleNotFoundError as e:
+        if e.name != full:
+            raise
+        raise ValueError(f"no {group}/{name}.py in the benchmark") from None
+
+
+def adapter(config: dict):
+    """adapters/<backend>.py of a configuration."""
+    return _module("adapters", config["backend"])
+
+
+def reference(config: dict):
+    """reference/<backend>.py of a configuration."""
+    return _module("reference", config["backend"])
+
+
+def kind(traffic: dict):
+    """kinds/<kind>.py of a traffic mix."""
+    return _module("kinds", traffic["kind"])

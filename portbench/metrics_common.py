@@ -1,6 +1,7 @@
 """What the metric readers share: the guard that keeps a device metric off
 a run without a card, and the kernel rooflines' timing through the port's
-public ops.
+public ops. The LRN and MAX-pool rooflines read a Caffe layer list, with
+the `caffe` backend's shapes (`reference/caffe.py`).
 
 A kernel's roofline share is the least time its work needs on the card
 (the larger of its bytes over HBM bandwidth and its operations over the
@@ -50,7 +51,7 @@ def lrn_roofline(ctx):
     pk = flops.peaks(ctx.device_name)
     if pk is None:
         return None
-    from .inputs import caffe_shapes
+    from .reference.caffe import shapes as caffe_shapes
     shapes = caffe_shapes(ctx.config)
     dt = _dtype(ctx.config)
     itemsize = torch.finfo(dt).bits // 8
@@ -96,7 +97,7 @@ def maxpool_bwd_roofline(ctx):
     pk = flops.peaks(ctx.device_name)
     if pk is None:
         return None
-    from .inputs import caffe_shapes
+    from .reference.caffe import shapes as caffe_shapes
     shapes = caffe_shapes(ctx.config)
     dt = _dtype(ctx.config)
     itemsize = torch.finfo(dt).bits // 8

@@ -1,5 +1,7 @@
-"""A Caffe net's TRAIN-phase loss, in plain PyTorch, from the layer list of
-a configuration file.
+"""The `caffe` backend: a Caffe net's TRAIN-phase loss and Caffe SGD, in
+plain PyTorch, from the layer list of a configuration file; its blobs'
+shapes, its learned leaves and its FLOPs (the backend's contract:
+`reference/__init__.py`).
 
 Layers: Convolution, ReLU, Pooling (MAX, or AVE over a window clipped to
 the padded input, as Caffe divides; Caffe's ceil rule for both), LRN (across
@@ -18,14 +20,104 @@ reference shares with the program.
 """
 from __future__ import annotations
 
+import math
 import zlib
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .precision import operand, output
+
+
+def caffe_pool_size(size: int, kernel: int, stride: int, pad: int) -> int:
+    """Caffe's pooled size: ceil division, then the last window dropped
+    when it would start in the padding."""
+    out = -(-(size + 2 * pad - kernel) // stride) + 1
+    if pad > 0 and (out - 1) * stride >= size + pad:
+        out -= 1
+    return out
+
+
+def shapes(config: dict) -> Dict[str, Tuple[int, ...]]:
+    """Every blob's NCHW shape (N, D for inner products) at the
+    configuration's batch, by layer top name (a layer's own name maps to
+    its output too)."""
+    n = config["batch"]
+    blobs = {"data": (n, config["channels"], config["crop"], config["crop"])}
+    out = {}
+    for layer in config["layers"]:
+        t = layer["type"]
+        x = blobs[layer["bottom"][0]]
+        if t == "Convolution":
+            p = layer["convolution_param"]
+            k, s, pad = p["kernel_size"], p.get("stride", 1), p.get("pad", 0)
+            h = (x[2] + 2 * pad - k) // s + 1
+            w = (x[3] + 2 * pad - k) // s + 1
+            y = (n, p["num_output"], h, w)
+        elif t == "Pooling":
+            p = layer["pooling_param"]
+            k, s, pad = p["kernel_size"], p.get("stride", 1), p.get("pad", 0)
+            y = (n, x[1], caffe_pool_size(x[2], k, s, pad),
+                 caffe_pool_size(x[3], k, s, pad))
+        elif t == "InnerProduct":
+            y = (n, layer["inner_product_param"]["num_output"])
+        elif t == "SoftmaxWithLoss":
+            y = ()
+        else:
+            y = x
+        blobs[layer["top"][0]] = y
+        out[layer["name"]] = y
+        out.setdefault(f"{layer['name']}:in", x)
+    return out
+
+
+def weight_leaves(config: dict) -> List[Tuple[str, Tuple[int, ...], dict]]:
+    """(key, shape, filler) of every learned leaf, in the program's layout
+    and order: `<layer>/w` OIHW or (out, in), then `<layer>/b`."""
+    leaves = []
+    blob_shapes = shapes(config)
+    for layer in config["layers"]:
+        t = layer["type"]
+        if t == "Convolution":
+            p = layer["convolution_param"]
+            cin = blob_shapes[f"{layer['name']}:in"][1] // p.get("group", 1)
+            k = p["kernel_size"]
+            w = (p["num_output"], cin, k, k)
+        elif t == "InnerProduct":
+            p = layer["inner_product_param"]
+            w = (p["num_output"],
+                 math.prod(blob_shapes[f"{layer['name']}:in"][1:]))
+        else:
+            continue
+        leaves.append((f"{layer['name']}/w", w, p["weight_filler"]))
+        leaves.append((f"{layer['name']}/b", (p["num_output"],),
+                       p["bias_filler"]))
+    return leaves
+
+
+def unit_axis(config: dict, key: str) -> int:
+    """A leaf's output axis: 0 of OIHW and (out, in)."""
+    return 0
+
+
+def forward_flops_per_sample(config: dict) -> float:
+    """Every convolution 2·OH·OW·k²·(Cin/group)·Cout and every inner
+    product 2·in·out, for one image."""
+    total = 0.0
+    blob_shapes = shapes(config)
+    for layer in config["layers"]:
+        name = layer["name"]
+        if layer["type"] == "Convolution":
+            p = layer["convolution_param"]
+            _, cout, h, w = blob_shapes[name]
+            cin = blob_shapes[f"{name}:in"][1] // p.get("group", 1)
+            total += 2.0 * h * w * p["kernel_size"] ** 2 * cin * cout
+        elif layer["type"] == "InnerProduct":
+            fan_in = math.prod(blob_shapes[f"{name}:in"][1:])
+            total += 2.0 * fan_in * blob_shapes[name][1]
+    return total
 
 
 def _seed(*keys: int) -> int:
@@ -66,14 +158,15 @@ def pool(x: torch.Tensor, kind: str, kernel: int, stride: int, pad: int,
     return y
 
 
-def loss(config: dict, params: Dict[str, torch.Tensor], data: torch.Tensor,
-         label: torch.Tensor, mode: str, step_keys) -> torch.Tensor:
-    """The TRAIN-phase loss of one batch: `data` [b, H, W, C] int8 pixels,
-    `label` [b, 1] int32, `params` {"<layer>/w", "<layer>/b"}; `step_keys`
-    = (seed, round, rank, step) for the dropout masks."""
-    from ..inputs import caffe_pool_size
-    blobs = {"data": data.permute(0, 3, 1, 2).contiguous().float(),
-             "label": label.reshape(-1).long()}
+def loss(config: dict, params: Dict[str, torch.Tensor],
+         rows: Dict[str, torch.Tensor], mode: str,
+         step_keys) -> torch.Tensor:
+    """The TRAIN-phase loss of one batch: `rows["data"]` [b, H, W, C] int8
+    pixels, `rows["label"]` [b, 1] int32, `params` {"<layer>/w",
+    "<layer>/b"}; `step_keys` = (seed, round, rank, step) for the dropout
+    masks."""
+    blobs = {"data": rows["data"].permute(0, 3, 1, 2).contiguous().float(),
+             "label": rows["label"].reshape(-1).long()}
     out = None
     for layer in config["layers"]:
         t, name = layer["type"], layer["name"]
@@ -148,6 +241,10 @@ def learning_rate(solver: dict, it: int) -> torch.Tensor:
         return base * torch.pow(torch.tensor(solver["gamma"],
                                              dtype=torch.float32), k)
     raise ValueError(f"lr_policy {policy!r} is not in the reference")
+
+
+def optimizer(config: dict) -> "Sgd":
+    return Sgd(config)
 
 
 class Sgd:

@@ -1,5 +1,7 @@
-"""A serialized graph's loss and its in-graph Momentum, in plain PyTorch,
-from the layer list of a configuration file.
+"""The `graph` backend: a serialized graph's loss and its in-graph
+Momentum, in plain PyTorch, from the layer list of a configuration file;
+its layers' shapes, its learned leaves and its FLOPs (the backend's
+contract: `reference/__init__.py`).
 
 Layers (NHWC activations, HWIO and (in, out) weights, TensorFlow's
 semantics): Conv2D with SAME padding (the output is ceil(in / stride);
@@ -13,12 +15,95 @@ fixed float32 learning rate.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .precision import operand, output
+
+
+def tf_out_size(size: int, kernel: int, stride: int, padding: str) -> int:
+    if padding == "SAME":
+        return -(-size // stride)
+    return (size - kernel) // stride + 1
+
+
+def shapes(config: dict) -> Dict[str, Tuple[int, ...]]:
+    """Every layer's NHWC output (N, D after the flatten), and its input
+    under `<name>:in`; a pooled conv layer's pool output under
+    `<name>:pool`."""
+    n, c = config["batch"], config["channels"]
+    x: Tuple[int, ...] = (n, config["crop"], config["crop"], c)
+    out = {}
+    for layer in config["layers"]:
+        out[f"{layer['name']}:in"] = x
+        op = layer["op"]
+        if op == "Conv2D":
+            k, s = layer["kernel"], layer["stride"]
+            h = tf_out_size(x[1], k, s, layer["padding"])
+            w = tf_out_size(x[2], k, s, layer["padding"])
+            x = (n, h, w, layer["out"])
+            out[layer["name"]] = x
+            pool = layer.get("pool")
+            if pool:
+                x = (n, tf_out_size(h, pool["ksize"], pool["strides"],
+                                    pool["padding"]),
+                     tf_out_size(w, pool["ksize"], pool["strides"],
+                                 pool["padding"]), layer["out"])
+                out[f"{layer['name']}:pool"] = x
+        elif op == "Flatten":
+            x = (n, math.prod(x[1:]))
+            out[layer["name"]] = x
+        elif op == "MatMul":
+            if x[1] != layer["in"]:
+                raise ValueError(f"{layer['name']}: input width {x[1]} != "
+                                 f"the layer's {layer['in']}")
+            x = (n, layer["out"])
+            out[layer["name"]] = x
+        else:
+            out[layer["name"]] = ()
+    return out
+
+
+def weight_leaves(config: dict) -> List[Tuple[str, Tuple[int, ...], dict]]:
+    """(key, shape, filler) of every learned leaf, in the program's layout
+    and order: `<layer>_w` HWIO or (in, out), then `<layer>_b`."""
+    leaves = []
+    for layer in config["layers"]:
+        if layer["op"] == "Conv2D":
+            k = layer["kernel"]
+            w = (k, k, layer["in"], layer["out"])
+        elif layer["op"] == "MatMul":
+            w = (layer["in"], layer["out"])
+        else:
+            continue
+        leaves.append((f"{layer['name']}_w", w,
+                       {"type": "gaussian", "std": layer["std"]}))
+        leaves.append((f"{layer['name']}_b", (layer["out"],),
+                       {"type": "constant", "value": layer["bias"]}))
+    return leaves
+
+
+def unit_axis(config: dict, key: str) -> int:
+    """A leaf's output axis: the last of HWIO and (in, out)."""
+    return -1
+
+
+def forward_flops_per_sample(config: dict) -> float:
+    """Every Conv2D 2·OH·OW·k²·Cin·Cout and every MatMul 2·in·out, for
+    one image."""
+    total = 0.0
+    layer_shapes = shapes(config)
+    for layer in config["layers"]:
+        name = layer["name"]
+        if layer["op"] == "Conv2D":
+            _, h, w, cout = layer_shapes[name]
+            total += 2.0 * h * w * layer["kernel"] ** 2 * layer["in"] * cout
+        elif layer["op"] == "MatMul":
+            total += 2.0 * layer["in"] * layer["out"]
+    return total
 
 
 def same_padding(size: int, kernel: int, stride: int):
@@ -38,10 +123,13 @@ def _pool(x: torch.Tensor, pool: dict) -> torch.Tensor:
 
 
 def loss(config: dict, variables: Dict[str, torch.Tensor],
-         data: torch.Tensor, label: torch.Tensor, mode: str) -> torch.Tensor:
-    """The loss of one batch: `data` [b, H, W, C] int8 pixels, `label`
-    [b] int32, `variables` {"<layer>_w", "<layer>_b"}."""
-    x = data.float()
+         rows: Dict[str, torch.Tensor], mode: str,
+         step_keys) -> torch.Tensor:
+    """The loss of one batch: `rows["data"]` [b, H, W, C] int8 pixels,
+    `rows["label"]` [b] int32, `variables` {"<layer>_w", "<layer>_b"}; a
+    graph draws nothing, so `step_keys` goes unused."""
+    x = rows["data"].float()
+    label = rows["label"]
     out = None
     for layer in config["layers"]:
         op, name = layer["op"], layer["name"]
@@ -78,6 +166,10 @@ def loss(config: dict, variables: Dict[str, torch.Tensor],
     if out is None:
         raise ValueError("the configuration has no SparseSoftmaxCrossEntropy")
     return out
+
+
+def optimizer(config: dict) -> "Momentum":
+    return Momentum(config)
 
 
 class Momentum:

@@ -7,11 +7,14 @@ optimizer, keeping its own momentum; then the weights are averaged over
 the workers (a sum, then a division). The round's loss is the workers'
 mean of their tau-step means.
 
+The loss, the optimizer and the weights are those of the configuration's
+backend, reference/<backend>.py (`reference/__init__.py`).
+
 `fault` plants one of the faults the check must catch, in the reference
 put in the program's place: "unchanged" (a round that returns its state
 as it found it), "half_batch" (each step's loss is the mean over the
-first half of its rows) and "no_exchange" (no average: each worker keeps
-its own weights).
+first half of its rows: every array of the step's rows halved on axis 0)
+and "no_exchange" (no average: each worker keeps its own weights).
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .. import load
 from ..inputs import make_round, make_weights
-from . import caffe, graph
 from .precision import MODES, exact_float32
 
 FAULTS = ("unchanged", "half_batch", "no_exchange")
@@ -39,8 +42,8 @@ def follow(config: dict, traffic: dict, seed: int, world: int, rounds: int,
         raise ValueError(f"unknown reference precision {mode!r}")
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
-    backend = config["backend"]
-    opt = caffe.Sgd(config) if backend == "caffe" else graph.Momentum(config)
+    backend = load.reference(config)
+    opt = backend.optimizer(config)
     tau = traffic["tau"]
     init = make_weights(config, seed, device)
     params = {k: v.clone() for k, v in init.items()}
@@ -57,15 +60,12 @@ def follow(config: dict, traffic: dict, seed: int, world: int, rounds: int,
                 rows = make_round(config, traffic, seed, k, rnd, device)
                 step_losses = []
                 for t in range(tau):
-                    data, label = rows["data"][t], rows["label"][t]
+                    step = {name: v[t] for name, v in rows.items()}
                     if fault == "half_batch":
-                        half = data.shape[0] // 2
-                        data, label = data[:half], label[:half]
-                    if backend == "caffe":
-                        lv = caffe.loss(config, w, data, label, mode,
-                                        (seed, rnd, k, t))
-                    else:
-                        lv = graph.loss(config, w, data, label, mode)
+                        step = {name: v[:v.shape[0] // 2]
+                                for name, v in step.items()}
+                    lv = backend.loss(config, w, step, mode,
+                                      (seed, rnd, k, t))
                     names = list(w)
                     grads = torch.autograd.grad(lv, [w[n] for n in names])
                     step_losses.append(float(lv.detach()))

@@ -6,7 +6,9 @@ import math
 
 import pytest
 
-from portbench import flops, inputs, load
+from portbench import flops, load
+from portbench.reference import caffe as ref_caffe
+from portbench.reference import graph as ref_graph
 from portbench.tests.tiny import _json
 
 CAFFENET = _json("configs/caffenet.json")
@@ -50,7 +52,7 @@ def test_peaks_by_card_name():
 
 
 def _lrn_shapes():
-    shapes = inputs.caffe_shapes(CAFFENET)
+    shapes = ref_caffe.shapes(CAFFENET)
     out = []
     for layer in CAFFENET["layers"]:
         if layer["type"] == "LRN":
@@ -74,7 +76,7 @@ def test_lrn_bounds_are_perf_mds():
 
 
 def test_maxpool_bwd_bound_is_perf_mds():
-    shapes = inputs.caffe_shapes(CAFFENET)
+    shapes = ref_caffe.shapes(CAFFENET)
     total = 0.0
     pools = [l for l in CAFFENET["layers"] if l["type"] == "Pooling"]
     assert [l["name"] for l in pools] == ["pool1", "pool2", "pool5"]
@@ -90,14 +92,14 @@ def test_maxpool_bwd_bound_is_perf_mds():
     (55, 3, 2, 0, 27), (27, 3, 2, 0, 13), (13, 3, 2, 0, 6),
     (32, 3, 2, 0, 16), (13, 3, 2, 1, 7), (6, 3, 2, 0, 3)])
 def test_caffe_pool_size(size, k, s, pad, want):
-    assert inputs.caffe_pool_size(size, k, s, pad) == want
+    assert ref_caffe.caffe_pool_size(size, k, s, pad) == want
 
 
 def test_weight_leaves_cover_the_nets_parameters():
-    leaves = inputs.weight_leaves(CAFFENET)
+    leaves = ref_caffe.weight_leaves(CAFFENET)
     n = sum(math.prod(s) for _, s, _ in leaves)
     assert n == 60965224  # 243.9 MB of float32: PERF.md's 244 MB
-    g = inputs.weight_leaves(GRAPH)
+    g = ref_graph.weight_leaves(GRAPH)
     assert [k for k, _, _ in g][:2] == ["conv1_w", "conv1_b"]
     assert dict((k, s) for k, s, _ in g)["fc6_w"] == (9216, 4096)
 

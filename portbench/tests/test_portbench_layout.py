@@ -70,7 +70,9 @@ def test_cells_order_chips_and_pairs():
 def test_each_cell_finds_its_files(cell):
     c = load.find_cell(BENCH, cell)
     assert c.config["name"] in {x["name"] for x in BENCH["configs"]}
-    assert c.traffic["kind"] == "train_rounds"
+    assert callable(load.kind(c.traffic).make_round)
+    assert callable(load.adapter(c.config).Program)
+    assert callable(load.reference(c.config).loss)
     assert set(c.limits) == {"loss_gap", "grad_gap", "grad_unit_gap",
                              "momentum_gap", "change_gap"}
     assert "setup_s" in c.end_to_end and len(c.end_to_end) >= 2
@@ -81,11 +83,13 @@ def test_each_cell_finds_its_files(cell):
 
 def test_per_layer_metrics_by_cell():
     got = {cell: load.find_cell(BENCH, cell).per_layer for cell in CELLS}
-    common = {"prep_wait_ms", "step_mfu", "device_idle_pct"}
+    common = {"prep_wait_ms", "step_mfu", "device_idle_pct", "forward_ms",
+              "backward_ms", "solver_ms", "host_lead_ms"}
     assert set(got["caffenet.b256.tau5"]) == common | {
         "lrn_roofline_pct", "maxpool_bwd_roofline_pct"}
     assert set(got["alexnet_graph.b256.tau5"]) == common
-    assert set(got["caffenet.b256.tau5.x4"]) == common | {"allreduce_ms"}
+    assert set(got["caffenet.b256.tau5.x4"]) == common | {"allreduce_ms",
+                                                         "exchange_ms"}
 
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda e: e["name"])
@@ -124,9 +128,13 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not tops & {"jax", "jaxlib", "flax", "sparknet_tpu"}, path
 
 
-@pytest.mark.parametrize("path", sorted((load.HERE / "reference").glob(
-    "*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(
+    list((load.HERE / "reference").glob("*.py"))
+    + list((load.HERE / "kinds").glob("*.py"))),
+    ids=lambda p: str(p.relative_to(load.HERE)))
 def test_the_reference_imports_nothing_of_the_port(path):
+    """Nor do the traffic kinds, which the reference draws its rows
+    through."""
     tops = {name.split(".")[0] for name in _imports(path)}
     assert "sparknet_tpu_torch" not in tops
     text = path.read_text()

@@ -51,8 +51,8 @@ def test_caffenet_step_matches_the_port(f32_policy):
         net.loss_fn(ops=OpsImpl(lrn="plain", pool="plain")), port,
         {"data": data.float(), "label": label}, gen)
     mine = {k: v.clone().requires_grad_(True) for k, v in w.items()}
-    loss_r = ref_caffe.loss(config, mine, data, label, "float32",
-                            (5, 0, 0, 0))
+    loss_r = ref_caffe.loss(config, mine, {"data": data, "label": label},
+                            "float32", (5, 0, 0, 0))
     grads_r = dict(zip(mine, torch.autograd.grad(loss_r, list(
         mine.values()))))
     lr = float(loss_r.detach())
@@ -63,7 +63,8 @@ def test_caffenet_step_matches_the_port(f32_policy):
     # holds it (gaps of norms; the per-unit median)
     keys = list(grads_r)
     assert max(compare.leaf_gaps(flat_p, grads_r, keys)) < 1e-4
-    assert float(compare.unit_gaps(flat_p, grads_r, keys, 0).median()) < 1e-6
+    assert float(compare.unit_gaps(flat_p, grads_r, keys, compare.unit_axes(
+        config, keys)).median()) < 1e-6
     # one Caffe SGD update from those gradients
     solver = SgdSolver(net, SolverConfig(**config["solver"]))
     sstate = solver.init_state(port)
@@ -101,10 +102,10 @@ def test_lrn_matches_the_ports_plain_formula():
 def test_graph_step_matches_the_port(f32_policy):
     from sparknet_tpu_torch.backend import GraphNet
 
-    from portbench.programs import GraphProgram
+    from portbench.adapters.graph import Program
     config, traffic = tiny.graph()
     w = inputs.make_weights(config, 3, CPU)
-    graph = GraphProgram(config, traffic).graph(
+    graph = Program(config, traffic).graph(
         {k: v.numpy() for k, v in w.items()})
     net = GraphNet(graph, device="cpu")
     rows = inputs.make_round(config, traffic, 3, 0, 0, CPU)
@@ -112,7 +113,8 @@ def test_graph_step_matches_the_port(f32_policy):
     new, loss_p = net.make_train_step()(
         net.init_train_state(), {"data": data.float(), "label": label})
     mine = {k: v.clone().requires_grad_(True) for k, v in w.items()}
-    loss_r = ref_graph.loss(config, mine, data, label, "float32")
+    loss_r = ref_graph.loss(config, mine, {"data": data, "label": label},
+                            "float32", (3, 0, 0, 0))
     grads = dict(zip(mine, torch.autograd.grad(loss_r,
                                                list(mine.values()))))
     lr = float(loss_r.detach())
@@ -129,12 +131,12 @@ def test_graph_step_matches_the_port(f32_policy):
 def test_the_graph_builder_is_build_alexnet_graphs():
     from sparknet_tpu_torch.backend.builder import build_alexnet_graph
 
-    from portbench.programs import GraphProgram
+    from portbench.adapters.graph import Program
     config = tiny._json("configs/alexnet_graph.json")
     want = build_alexnet_graph(batch=2, n_classes=1000)
     config["batch"] = 2
-    shapes = {k: s for k, s, _ in inputs.weight_leaves(config)}
-    got = GraphProgram(config, dict(local_batch=2)).graph(
+    shapes = {k: s for k, s, _ in ref_graph.weight_leaves(config)}
+    got = Program(config, dict(local_batch=2)).graph(
         {k: np.zeros(s, np.float32) for k, s in shapes.items()})
 
     def strip(g):
@@ -185,7 +187,7 @@ def test_tf32_rounding():
 
 def _caffe_ave_pool(x: np.ndarray, k: int, s: int, pad: int) -> np.ndarray:
     """Caffe's AVE forward, loop for loop (pooling_layer.cpp)."""
-    from portbench.inputs import caffe_pool_size
+    from portbench.reference.caffe import caffe_pool_size
     n, c, h, w = x.shape
     oh, ow = caffe_pool_size(h, k, s, pad), caffe_pool_size(w, k, s, pad)
     y = np.zeros((n, c, oh, ow))
@@ -206,7 +208,7 @@ def test_ave_pool_divides_as_caffe(hw, k, s, pad):
     """AVE pooling (cifar10_quick's pool2 and pool3) against Caffe's loop
     and against the port's `ops.pooling.pool2d`, forward and backward."""
     from sparknet_tpu_torch.ops.pooling import pool2d
-    from portbench.inputs import caffe_pool_size
+    from portbench.reference.caffe import caffe_pool_size
     g = torch.Generator().manual_seed(sum(hw) * 10 + k)
     x = torch.randn((2, 3) + hw, generator=g, dtype=torch.float64)
     want_hw = [caffe_pool_size(d, k, s, pad) for d in hw]
@@ -242,7 +244,7 @@ def test_the_controls_fail_the_checks_of_their_cells(kind, cell):
     ref = follow(config, traffic, 8, 1, 3, CPU)
     got = follow(config, traffic, 8, 1, 3, CPU,
                  mode=CONTROL[config["precision"]])
-    nums = compare.numbers(got, ref, compare.unit_axis(config))
+    nums = compare.numbers(got, ref, compare.unit_axes(config, ref["first"]))
     assert not compare.decide(nums, limits), nums
 
 
@@ -251,7 +253,7 @@ def test_the_reference_follows_itself_exactly():
     a = follow(config, traffic, 4, 2, 2, CPU)
     b = follow(config, traffic, 4, 2, 2, CPU)
     assert a["loss"] == b["loss"]
-    nums = compare.numbers(a, b)
+    nums = compare.numbers(a, b, compare.unit_axes(config, b["first"]))
     assert set(nums.values()) == {0.0}
 
 
@@ -259,4 +261,5 @@ def test_the_average_is_over_workers():
     config, traffic = tiny.graph()
     one = follow(config, traffic, 4, 2, 1, CPU, fault="no_exchange")
     avg = follow(config, traffic, 4, 2, 1, CPU)
-    assert compare.numbers(one, avg)["change_gap"] > 0.05
+    assert compare.numbers(one, avg, compare.unit_axes(
+        config, avg["first"]))["change_gap"] > 0.05
